@@ -5,27 +5,43 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the chain DP kernel from ``lrge_tpu_torch/csrc/chain_dp.cu``;
-3. the kernel against its plain PyTorch version on the card, at the
+2. build the chain DP kernel (both variants) from
+   ``lrge_tpu_torch/csrc/chain_dp.cu``;
+3. each variant against its plain PyTorch version on the card, at the
    main path's shapes ([512, 4096] and [1024, 2048] anchors, W = 32)
-   and on a colinear skip-break corpus (W = 64): ``f`` and ``broke`` must be
-   bit-equal (tolerance 0, integer outputs);
+   and on a colinear skip-break corpus (W = 64): ``f`` and ``broke``,
+   and for the extent variant also ``cnt``, ``start`` and ``rmf``, must
+   be bit-equal (tolerance 0, integer outputs);
 4. the main path: ``lrge_tpu_torch.cli.main`` on a synthetic 4.4 Mbp
    genome (15,000 reads, mean 2.5 kb, 5% errors, seed 6) at the
    published run shape ``-T 10000 -Q 5000``, with ``--engine auto``,
    which must resolve to the device and launch the kernel; then the
    device engine alone on the same index, timed, with 300 sampled query
-   counts held against the exact host engine.
+   counts held against the exact host engine;
+5. ``-F`` through the CLI on the same corpus and run shape (the extent
+   variant must launch), then a timed ``-F`` pass of the phase-4 engine
+   with 300 rows held against the host ``-F`` count;
+6. ``--use-min-ref`` through the CLI on the same corpus (the inverse
+   direction must engage), then the inverse engine alone: a timed
+   pair-list pass and a ``-F`` pass (``"overhang"`` mode), 300 rows
+   each held against the host;
+7. ``-n 25000`` (all-vs-all at the reference's default) through the CLI
+   on 26,000 reads from the same genome, then the all-vs-all engine
+   alone: a timed pair-list pass and a ``-F`` pass, 300 rows each held
+   against the host.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints
-no result.
+Each CLI run runs with ``--engine auto``, must log the device engine,
+and must launch the kernel variant of its path (counts reset just
+before it, read just after).  The line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -36,6 +52,10 @@ import numpy as np
 import torch
 
 SEED = 6
+GENOME = 4_400_000  # bp of the synthetic genome
+READS, T, Q = 15_000, 10_000, 5_000  # two-set corpus and run shape
+AVA_READS, AVA_N = 26_000, 25_000  # all-vs-all corpus and -n
+SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # ONT preset chn_pen_gap
 IMAX = np.iinfo(np.int32).max
@@ -71,12 +91,15 @@ def anchor_rows(rng, B, A, *, colinear=False, n_rids=40):
     return key2, rpos, qpos, valid
 
 
-def kernel_vs_plain(ck, dev):
-    """Phase 3: bit-equality and times; returns the main-shape record."""
+def kernel_vs_plain(ck, dev, extents=False):
+    """Phase 3: bit-equality and times of one variant; returns the
+    main-shape record."""
     # the break needs more than max_skip marked predecessors in view, so
     # the colinear corpus runs at W = 64
     cases = [("main_4096", 512, 4096, 32, False), ("main_2048", 1024, 2048, 32, False),
              ("colinear", 256, 1024, 64, True)]
+    tag = "kernel ext" if extents else "kernel"
+    kw = dict(KW, extents=extents)
     rec = {}
     max_err = 0
     for name, B, A, W, colinear in cases:
@@ -84,26 +107,27 @@ def kernel_vs_plain(ck, dev):
         arrs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A, colinear=colinear)]
         nvalid = arrs[3].sum(dim=1).to(torch.int32)
         for _ in range(3):  # warm-up
-            f_k, b_k = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **KW)
+            got = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **kw)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         reps = 20
         start.record()
         for _ in range(reps):
-            f_k, b_k = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **KW)
+            got = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **kw)
         end.record()
         torch.cuda.synchronize()
         k_ms = start.elapsed_time(end) / reps
         t0 = time.perf_counter()
-        f_p, b_p = ck.chain_dp_skip_plain(*arrs, nvalid, PEN_GAP, window=W, **KW)
+        want = ck.chain_dp_skip_plain(*arrs, nvalid, PEN_GAP, window=W, **kw)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
-        err = max(int((f_k.long() - f_p.long()).abs().max()), int((b_k != b_p).sum()))
-        n_broke = int(b_p.sum())
-        print(f"[kernel] {name} [{B}, {A}] W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
-              f"max_abs_err {err}, broke rows {n_broke}", flush=True)
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        n_broke = int(want[1].sum())
+        extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if extents else ""
+        print(f"[{tag}] {name} [{B}, {A}] W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+              f"max_abs_err {err}, broke rows {n_broke}{extra}", flush=True)
         if err:
-            fail(f"chain kernel != plain version on {name}")
+            fail(f"chain kernel ({tag}) != plain version on {name}")
         if colinear and not n_broke:
             fail("the colinear corpus must fire the skip break")
         max_err = max(max_err, err)
@@ -133,7 +157,7 @@ def make_reads(rng, genome, n, mean_len, err):
     return reads
 
 
-def write_corpus(path: Path, n_reads: int, genome_size: int = 4_400_000) -> None:
+def write_corpus(path: Path, n_reads: int, genome_size: int = GENOME) -> None:
     """A genome with a dispersed 2 kb five-copy family and a 400 bp x 5
     tandem block; reads at mean 2.5 kb and 5% substitutions."""
     rng = np.random.default_rng(SEED)
@@ -159,41 +183,114 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def main_path(ck, dev, gpu_line):
-    """Phase 4: the CLI at the published run shape, then the engine alone."""
-    from lrge_tpu_torch import cli, device_engine
+LOGGED = "Using device overlap engine on cuda"
+
+
+def run_cli(ck, tag, args, out, gpu_line, *, needle="", ext=False, host_equal=False):
+    """One CLI path with ``--engine auto``: both kernel counts are set to 0
+    just before it and read just after.  It must log the device engine
+    (a line starting with ``LOGGED`` and holding ``needle``), launch its
+    kernel variant, and print a finite estimate within 25% of the
+    genome, or with ``host_equal`` the estimate that the same command
+    prints on the exact host engine (``-F``: the reference's filter
+    drops most true overlaps, so its estimate is not the genome size).
+    Returns ``(launches, ext_launches)``."""
+    from lrge_tpu_torch import cli
+
+    records = _Records()
+    lg = logging.getLogger("lrge")
+    lg.addHandler(records)
+    lg.setLevel(logging.INFO)
+    ck.chain_dp_skip.launches = 0
+    ck.chain_dp_skip.ext_launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([*args, "-s", str(SEED), "-o", str(out)])
+    finally:
+        wall = time.perf_counter() - t0
+        launches, ext_launches = ck.chain_dp_skip.launches, ck.chain_dp_skip.ext_launches
+        lg.removeHandler(records)
+    if rc != 0:
+        fail(f"[{tag}] cli.main returned {rc}")
+    if not any(m.startswith(LOGGED) and needle in m for m in records.messages):
+        fail(f"[{tag}] --engine auto did not resolve to the device engine")
+    if (ext_launches if ext else launches) <= 0:
+        fail(f"[{tag}] the path never launched the chain kernel{' (extent variant)' if ext else ''}")
+    est = float(out.read_text())
+    print(f"[{tag}] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches {launches}, "
+          f"extent-variant launches {ext_launches} ({gpu_line})", flush=True)
+    if not np.isfinite(est):
+        fail(f"[{tag}] estimate {est} is not finite")
+    if host_equal:
+        host_out = out.with_suffix(".host")
+        t0 = time.perf_counter()
+        rc = cli.main([*args, "-s", str(SEED), "-o", str(host_out), "--engine", "host",
+                       "-t", str(os.cpu_count() or 1), "-qqq"])
+        if rc != 0 or host_out.read_text() != out.read_text():
+            fail(f"[{tag}] device estimate {est} != the host engine's ({host_out.read_text().strip()})")
+        print(f"[{tag}] the host engine prints the same estimate (host wall "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    elif abs(est - GENOME) / GENOME > 0.25:
+        fail(f"[{tag}] estimate {est} is not within 25% of the {GENOME:,} bp genome")
+    return launches, ext_launches
+
+
+def timed_pass(engine, names, seqs, pairs=False, **kw):
+    """One warm ``count_batch`` pass, timed, with fresh fallback tallies;
+    returns ``(result, pair dict or None, report)``."""
+    engine.fallback_triggers.clear()
+    collected = {} if pairs else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = engine.count_batch(names, seqs, collect_pairs=collected, **kw)
+    t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    report = (f"{len(seqs) / t:.1f} q/s ({t:.3f} s for {len(seqs)} rows), fallback_rows "
+              f"{res.fallback_rows}, fallback_triggers {dict(engine.fallback_triggers)}, peak device "
+              f"memory {peak / 2**20:.1f} MiB")
+    return res, collected, report
+
+
+def check_sample(tag, engine, names, seqs, res, pairs, filter_ratio=None, filter_mode="internal"):
+    """``SAMPLE`` rows against the exact host engine: counts and
+    had-mapping flags, and pair lists as rid sets (the host ``-F``
+    count under ``filter_ratio``)."""
+    sample = np.random.default_rng(0).choice(len(seqs), size=SAMPLE, replace=False)
+    items = [(names[i], seqs[i]) for i in sample]
+    if filter_ratio is not None:
+        host = engine._host_count_filtered(items, filter_ratio, mode=filter_mode, want_pairs=pairs is not None)
+    else:
+        host = engine.host.count_overlaps_many(items, want_pairs=pairs is not None)
+    for i, h in zip(sample, host):
+        if res.counts[i] != h[0] or bool(res.had_mapping[i]) != bool(h[1]):
+            fail(f"[{tag}] row {i}: device ({res.counts[i]}, {res.had_mapping[i]}) != host {h[:2]}")
+        if pairs is not None:
+            got, want = pairs.get(i), h[2]
+            if (got is None) != (want is None) or (
+                got is not None and set(got.tolist()) != set(want.tolist())
+            ):
+                fail(f"[{tag}] row {i}: device pair list != host")
+    print(f"[{tag}] {SAMPLE} sampled rows equal the host engine's", flush=True)
+
+
+def twoset_paths(ck, dev, gpu_line):
+    """Phases 4-6 on the 15,000-read corpus at ``-T 10000 -Q 5000``;
+    returns the main path's and the ``-F`` path's launch counts."""
+    from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         tmp = Path(tmp)
         fq = tmp / "reads.fq"
         t0 = time.perf_counter()
-        write_corpus(fq, 15_000)
+        write_corpus(fq, READS)
         print(f"[main] corpus: {time.perf_counter() - t0:.1f} s", flush=True)
-        records = _Records()
-        lg = logging.getLogger("lrge")
-        lg.addHandler(records)
-        lg.setLevel(logging.INFO)
-        ck.chain_dp_skip.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main([str(fq), "-T", "10000", "-Q", "5000", "-s", str(SEED), "-o", str(tmp / "est.txt")])
-        wall = time.perf_counter() - t0
-        launches = ck.chain_dp_skip.launches
-        lg.removeHandler(records)
-        if rc != 0:
-            fail(f"cli.main returned {rc}")
-        if not any(m.startswith("Using device overlap engine on cuda") for m in records.messages):
-            fail("--engine auto did not resolve to the device")
-        if launches <= 0:
-            fail("the main path never launched the chain kernel")
-        est = float((tmp / "est.txt").read_text())
-        if not np.isfinite(est) or abs(est - 4.4e6) / 4.4e6 > 0.25:
-            fail(f"estimate {est} is not within 25% of the 4.4 Mbp genome")
-        print(f"[main] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches {launches} "
-              f"({gpu_line})", flush=True)
+        shape = [str(fq), "-T", str(T), "-Q", str(Q)]
+        launches, _ = run_cli(ck, "main", shape, tmp / "est.txt", gpu_line)
 
         # the same index and queries as the CLI run (same seed and split)
-        strat = TwoSetStrategy(fq, target_num_reads=10_000, query_num_reads=5_000, seed=SEED, tmpdir=tmp)
+        strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp)
         targets, queries, _ = strat.split_fastq()
         index = strat._build_engine(targets).index
         engine = device_engine.DeviceOverlapEngine(index, device=dev)
@@ -203,26 +300,67 @@ def main_path(ck, dev, gpu_line):
         names = [n for n, _ in queries]
         seqs = [s for _, s in queries]
         engine.warmup([len(s) for s in seqs])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = engine.count_batch(names, seqs)
-        t_map = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        sample = np.random.default_rng(0).choice(len(queries), size=300, replace=False)
-        host = engine.host.count_overlaps_many([(names[i], seqs[i]) for i in sample])
-        h_counts = np.array([c for c, _ in host])
-        h_had = np.array([bool(h) for _, h in host])
-        if not np.array_equal(res.counts[sample], h_counts):
-            fail("device counts != host counts on the 300-query sample")
-        if not np.array_equal(res.had_mapping[sample], h_had):
-            fail("device had_mapping != host on the 300-query sample")
-        print(f"[main] engine: {len(queries) / t_map:.1f} q/s ({t_map:.3f} s for {len(queries)} "
-              f"queries), fallback_rows {res.fallback_rows}, fallback_triggers "
-              f"{dict(engine.fallback_triggers)}, peak device memory {peak / 2**20:.1f} MiB, "
-              f"HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
-        print("[main] 300 sampled query counts equal the host engine's", flush=True)
-        return launches
+        res, _, report = timed_pass(engine, names, seqs)
+        check_sample("main", engine, names, seqs, res, None)
+        print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
+
+        # phase 5: -F on the same run shape
+        _, ext_launches = run_cli(
+            ck, "filter", [*shape, "-F"], tmp / "est_f.txt", gpu_line, needle="with -F filtering", ext=True,
+            host_equal=True,
+        )
+        engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
+        res, _, report = timed_pass(engine, names, seqs, filter_ratio=0.2)
+        check_sample("filter", engine, names, seqs, res, None, filter_ratio=0.2)
+        print(f"[filter] engine: {report} ({gpu_line})", flush=True)
+
+        # phase 6: --use-min-ref (index the queries, stream the targets)
+        run_cli(ck, "inverse", [*shape, "--use-min-ref"], tmp / "est_i.txt", gpu_line, needle="for --use-min-ref")
+        if not strat.target_num_bases > strat.query_num_bases:
+            fail("the inverse direction must engage: target bases <= query bases")
+        inv = device_engine.DeviceOverlapEngine(strat._build_engine(queries).index, device=dev)
+        tnames = [n for n, _ in targets]
+        tseqs = [s for _, s in targets]
+        inv.warmup([len(s) for s in tseqs], want_pairs=True)
+        res, pairs, report = timed_pass(inv, tnames, tseqs, pairs=True)
+        check_sample("inverse", inv, tnames, tseqs, res, pairs)
+        print(f"[inverse] engine: {report} ({gpu_line})", flush=True)
+        mode = dict(filter_ratio=0.2, filter_mode="overhang")
+        inv.warmup([len(s) for s in tseqs], want_pairs=True, **mode)
+        res, pairs, report = timed_pass(inv, tnames, tseqs, pairs=True, **mode)
+        check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
+        print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
+        return launches, ext_launches
+
+
+def ava_path(ck, dev, gpu_line):
+    """Phase 7: ``-n 25000`` on 26,000 reads of the same genome, then the
+    all-vs-all engine alone (pairs, and pairs under ``-F``)."""
+    from lrge_tpu.platform import preset_for
+    from lrge_tpu_torch import device_engine
+    from lrge_tpu_torch.strategy import AvaStrategy
+    from lrge_tpu_torch.strategy.twoset import build_index_no_fork
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        tmp = Path(tmp)
+        fq = tmp / "reads.fq"
+        write_corpus(fq, AVA_READS)
+        run_cli(ck, "ava", [str(fq), "-n", str(AVA_N)], tmp / "est.txt", gpu_line)
+        strat = AvaStrategy(fq, num_reads=AVA_N, seed=SEED, tmpdir=tmp)
+        reads, _ = strat.subsample_reads()
+        names = [n for n, _ in reads]
+        seqs = [s for _, s in reads]
+        index = build_index_no_fork(seqs, names, preset_for(strat.platform, dual=False))
+        engine = device_engine.DeviceOverlapEngine(index, device=dev)
+        lens = [len(s) for s in seqs]
+        engine.warmup(lens, want_pairs=True)
+        res, pairs, report = timed_pass(engine, names, seqs, pairs=True)
+        check_sample("ava", engine, names, seqs, res, pairs)
+        print(f"[ava] engine: {report} ({gpu_line})", flush=True)
+        engine.warmup(lens, filter_ratio=0.2, want_pairs=True)
+        res, pairs, report = timed_pass(engine, names, seqs, pairs=True, filter_ratio=0.2)
+        check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
+        print(f"[ava -F] engine: {report} ({gpu_line})", flush=True)
 
 
 def main() -> int:
@@ -242,7 +380,9 @@ def main() -> int:
     print(f"[build] {so.name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
     rec = kernel_vs_plain(ck, dev)
-    launches = main_path(ck, dev, gpu_line)
+    rec_ext = kernel_vs_plain(ck, dev, extents=True)
+    launches, ext_launches = twoset_paths(ck, dev, gpu_line)
+    ava_path(ck, dev, gpu_line)
     kernels = [{
         "name": "chain_dp_skip",
         "route": "cuda",
@@ -252,6 +392,16 @@ def main() -> int:
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],
+    }, {
+        "name": "chain_dp_skip_ext",
+        "route": "cuda",
+        "source": "lrge_tpu_torch/csrc/chain_dp.cu",
+        "replaces": "lrge_tpu/ops/chain_pallas.py:274",
+        "also_replaces": "lrge_tpu/ops/overlap_jax.py:661-788",
+        "launches": ext_launches,
+        "max_abs_err": rec_ext["max_abs_err"],
+        "ms": rec_ext["ms"],
+        "plain_ms": rec_ext["plain_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

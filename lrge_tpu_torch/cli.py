@@ -1,7 +1,7 @@
 """Flag-compatible CLI on the PyTorch port (``python -m lrge_tpu_torch``).
 
-Mirrors ``lrge_tpu.cli.main`` with the port's two-set strategy; the
-parser and logging set-up are the reference's own.  Prints the
+Mirrors ``lrge_tpu.cli.main`` with the port's two-set and all-vs-all
+strategies; the parser and logging set-up are the reference's own.  Prints the
 genome-size estimate (in bp, rounded) to stdout or ``-o``.
 """
 
@@ -20,7 +20,7 @@ from lrge_tpu.errors import LrgeError
 from lrge_tpu.strategy.twoset import DEFAULT_QUERY_NUM_READS, DEFAULT_TARGET_NUM_READS
 from lrge_tpu.utils import create_temp_dir, format_estimate
 
-from .strategy import TwoSetBuilder
+from .strategy import AvaBuilder, TwoSetBuilder
 
 logger = logging.getLogger("lrge")
 
@@ -36,8 +36,6 @@ def main(argv=None, device: torch.device | None = None) -> int:
         args.target_num_reads is not None or args.query_num_reads is not None
     ):
         ap.error("the argument '--num <INT>' cannot be used with '--target/--query'")
-    if args.num_reads is not None:
-        raise NotImplementedError("the all-vs-all strategy (-n): ROADMAP.md item 9")
     if os.environ.get("LRGE_COORDINATOR"):
         raise NotImplementedError("multi-host runs (LRGE_COORDINATOR): ROADMAP.md item 13")
     setup_logging(args.quiet, args.verbose)
@@ -47,15 +45,18 @@ def main(argv=None, device: torch.device | None = None) -> int:
         "Created temporary directory at %s", tmp.path
     )
     try:
-        t = args.target_num_reads if args.target_num_reads is not None else DEFAULT_TARGET_NUM_READS
-        q = args.query_num_reads if args.query_num_reads is not None else DEFAULT_QUERY_NUM_READS
-        logger.info("Running two-set strategy with %d target reads and %d query reads", t, q)
+        if args.num_reads is not None:
+            logger.info("Running all-vs-all strategy with %d reads", args.num_reads)
+            builder = AvaBuilder().num_reads(args.num_reads)
+        else:
+            t = args.target_num_reads if args.target_num_reads is not None else DEFAULT_TARGET_NUM_READS
+            q = args.query_num_reads if args.query_num_reads is not None else DEFAULT_QUERY_NUM_READS
+            logger.info("Running two-set strategy with %d target reads and %d query reads", t, q)
+            builder = (
+                TwoSetBuilder().target_num_reads(t).query_num_reads(q).use_min_ref(args.use_min_ref)
+            )
         strategy = (
-            TwoSetBuilder()
-            .target_num_reads(t)
-            .query_num_reads(q)
-            .remove_internal(args.filter_contained, args.max_overhang_ratio)
-            .use_min_ref(args.use_min_ref)
+            builder.remove_internal(args.filter_contained, args.max_overhang_ratio)
             .engine(args.engine)
             .device_paf(args.keep_temp)
             .threads(args.threads)

@@ -4,6 +4,17 @@
 // (body _chain_kernel).  Semantics: see lrge_tpu_torch/ops/chain_kernel.py,
 // whose chain_dp_skip_plain is the reference this kernel is held to.
 //
+// The EXT = true variant also carries the chain-extent state of the XLA
+// scan's -F path (lrge_tpu/ops/overlap_jax.py:661-788): three more rings
+// with per-anchor outputs cnt (chain anchor count), start (rpos << 16 |
+// qpos of the chain's first anchor) and rmf (running max f << 1 | valley
+// bit).  Each anchor takes them from its chosen predecessor: the position
+// bd is warp-uniform after the reduce, so every lane selects slot bd % S
+// and one __shfl_sync per ring reads lane bd / S.  That is three more
+// dependent shuffles per anchor (plus three ring pushes), and three more
+// S-deep register rings, which raise register pressure most at W = 128.
+// EXT = false compiles the same code as before the variant existed.
+//
 // Layout: a row's predecessor ring (W newest anchors, position d = 0 is
 // the newest) lives in the registers of one warp; lane l holds the S =
 // max(1, W/32) consecutive positions d = l*S + s.  For W = 16 the upper
@@ -66,13 +77,15 @@ struct AddOp {
   __device__ int operator()(int a, int b) const { return a + b; }
 };
 
-template <int W>
+template <int W, bool EXT>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
                 const int* __restrict__ qpos, const int* __restrict__ valid,
                 const int* __restrict__ nvalid, int B, int A, float pen_gap,
                 int span, int max_gap, int bw, int max_skip,
-                int* __restrict__ f_out, int* __restrict__ broke_out) {
+                int* __restrict__ f_out, int* __restrict__ broke_out,
+                int* __restrict__ cnt_out, int* __restrict__ start_out,
+                int* __restrict__ rmf_out) {
   constexpr int S = W >= 32 ? W / 32 : 1;
   constexpr int P = W >= 32 ? W / 32 : 1;  // vote planes
   const int lane = threadIdx.x & 31;
@@ -84,9 +97,12 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
 
   int rk[S], rr[S], rq[S], rf[S], rp[S];
   bool rok[S];
+  // extent rings (EXT only): chain count, packed chain start, rmf
+  int rc[EXT ? S : 1], rs[EXT ? S : 1], rm[EXT ? S : 1];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     rk[s] = IMAX; rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
+    if constexpr (EXT) { rc[s] = 0; rs[s] = 0; rm[s] = 0; }
   }
 
   for (int base = 0; base < n; base += 32) {
@@ -95,7 +111,7 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
     if (idx < n) {
       lk = key2[off + idx]; lr = rpos[off + idx]; lq = qpos[off + idx]; lv = valid[off + idx];
     }
-    int my_f = NEG, my_b = 0;
+    int my_f = NEG, my_b = 0, my_c = 0, my_s = 0, my_r = 0;
     const int m = min(32, n - base);
     for (int j = 0; j < m; ++j) {
       const int i = base + j;
@@ -198,9 +214,34 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
       const bool has_pred = best > span;
       const int f_t = cv ? max(span, best) : NEG;
       const int p_t = (cv && has_pred) ? i - 1 - bd : -1;
+      int c_t = 0, s_t = 0, r_t = 0;
+      if constexpr (EXT) {
+        // the chosen predecessor's carries: slot bd % S of lane bd / S
+        int gc = 0, gs = 0, gm = 0;
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (s == bd % S) { gc = rc[s]; gs = rs[s]; gm = rm[s]; }
+        gc = __shfl_sync(FULL, gc, bd / S);
+        gs = __shfl_sync(FULL, gs, bd / S);
+        gm = __shfl_sync(FULL, gm, bd / S);
+        if (cv && has_pred) {
+          const int prevmax = gm >> 1;
+          const int valley = (gm & 1) | (prevmax - f_t > bw ? 1 : 0);
+          c_t = gc + 1;
+          s_t = gs;
+          r_t = (max(prevmax, f_t) << 1) | valley;
+        } else if (cv) {
+          // a chain starts here (int32 wrap as in the reference; the
+          // -F gate keeps rpos < 2^15)
+          c_t = 1;
+          s_t = static_cast<int>((static_cast<unsigned>(cr) << 16) | static_cast<unsigned>(cq));
+          r_t = f_t << 1;
+        }
+      }
       if (lane == j) {
         my_f = f_t;
         my_b = (cv && cut < W) ? 1 : 0;
+        if constexpr (EXT) { my_c = c_t; my_s = s_t; my_r = r_t; }
       }
 
       // push the anchor onto the ring (newest first)
@@ -216,44 +257,74 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
       LRGE_PUSH(rf, f_t)
       LRGE_PUSH(rp, p_t)
       LRGE_PUSH(rok, cv)
+      if constexpr (EXT) {
+        LRGE_PUSH(rc, c_t)
+        LRGE_PUSH(rs, s_t)
+        LRGE_PUSH(rm, r_t)
+      }
 #undef LRGE_PUSH
     }
     if (idx < A) {
       f_out[off + idx] = my_f;
       broke_out[off + idx] = my_b;
+      if constexpr (EXT) {
+        cnt_out[off + idx] = my_c;
+        start_out[off + idx] = my_s;
+        rmf_out[off + idx] = my_r;
+      }
     }
   }
   for (int idx = ((n + 31) / 32) * 32 + lane; idx < A; idx += 32) {
     f_out[off + idx] = NEG;
     broke_out[off + idx] = 0;
+    if constexpr (EXT) {
+      cnt_out[off + idx] = 0;
+      start_out[off + idx] = 0;
+      rmf_out[off + idx] = 0;
+    }
   }
 }
 
-template <int W>
-void launch(const int* key2, const int* rpos, const int* qpos, const int* valid,
-            const int* nvalid, int B, int A, float pen_gap, int span, int max_gap,
-            int bw, int max_skip, int* f, int* broke, cudaStream_t stream) {
+template <bool EXT>
+int launch(const int* key2, const int* rpos, const int* qpos, const int* valid,
+           const int* nvalid, int B, int A, float pen_gap, int span, int max_gap,
+           int bw, int max_skip, int window, int* f, int* broke, int* cnt, int* start,
+           int* rmf, void* stream) {
   const int blocks = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  chain_dp_kernel<W><<<blocks, 32 * WARPS_PER_BLOCK, 0, stream>>>(
-      key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f,
-      broke);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LRGE_LAUNCH(WIN)                                                              \
+  chain_dp_kernel<WIN, EXT><<<blocks, 32 * WARPS_PER_BLOCK, 0, st>>>(                 \
+      key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, \
+      broke, cnt, start, rmf)
+  switch (window) {
+    case 16: LRGE_LAUNCH(16); break;
+    case 32: LRGE_LAUNCH(32); break;
+    case 64: LRGE_LAUNCH(64); break;
+    case 128: LRGE_LAUNCH(128); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LRGE_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Both entry points return cudaGetLastError() after the launch (0 on success).
 extern "C" int chain_dp_skip_launch(const int* key2, const int* rpos, const int* qpos,
                                     const int* valid, const int* nvalid, int B, int A,
                                     float pen_gap, int span, int max_gap, int bw,
                                     int max_skip, int window, int* f, int* broke,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (window) {
-    case 16: launch<16>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, broke, st); break;
-    case 32: launch<32>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, broke, st); break;
-    case 64: launch<64>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, broke, st); break;
-    case 128: launch<128>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, broke, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw,
+                       max_skip, window, f, broke, nullptr, nullptr, nullptr, stream);
+}
+
+// The -F variant: also writes cnt, start and rmf ([B, A] int32 each).
+extern "C" int chain_dp_skip_ext_launch(const int* key2, const int* rpos, const int* qpos,
+                                        const int* valid, const int* nvalid, int B, int A,
+                                        float pen_gap, int span, int max_gap, int bw,
+                                        int max_skip, int window, int* f, int* broke,
+                                        int* cnt, int* start, int* rmf, void* stream) {
+  return launch<true>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw,
+                      max_skip, window, f, broke, cnt, start, rmf, stream);
 }

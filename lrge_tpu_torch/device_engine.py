@@ -8,7 +8,9 @@ device cannot guarantee exactly (anchor-buffer overflow, a (rid,
 strand) run longer than the DP window, minimizer-capacity truncation,
 ambiguous bases) are recomputed by the exact host engine, so counts
 equal the host engine's; every such row is tallied in
-``fallback_triggers``.
+``fallback_triggers``.  ``count_batch`` can also collect each row's
+passing target ids (ava, ``--use-min-ref``) and apply the ``-F``
+overhang filter on the device (``supports_device_filter``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from lrge_tpu.native import native
 from lrge_tpu.ops.encode import make_batches
 from lrge_tpu.ops.index import TargetIndex
 
-from .ops.overlap import GroupedDeviceIndex, minimizer_cap, pack2bit_host, sketch_map_many
+from .ops.overlap import HAD_BIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host, sketch_map_many
 
 logger = logging.getLogger("lrge")
 
@@ -70,6 +72,22 @@ def default_device() -> torch.device:
 
 def _has_native_count() -> bool:
     return native is not None and hasattr(native, "count_many")
+
+
+def overhang_heavy(m, ratio) -> bool:
+    """The ``--use-min-ref -F`` drop test (``twoset.rs:493-517``): the
+    reference drops overhang-HEAVY mappings, the opposite of
+    ``is_internal`` (f32 product truncated to an integer)."""
+    if m.strand == "+":
+        overhang = min(m.query_start, m.target_start) + min(
+            m.query_len - m.query_end, m.target_len - m.target_end
+        )
+    else:
+        overhang = min(m.query_start, m.target_len - m.target_end) + min(
+            m.query_len - m.query_end, m.target_start
+        )
+    maplen = max(m.query_end - m.query_start, m.target_end - m.target_start)
+    return overhang > int(np.float32(maplen) * np.float32(ratio))
 
 
 class DeviceOverlapEngine:
@@ -125,11 +143,68 @@ class DeviceOverlapEngine:
             out[i] = int(rank_of[r]) if r >= 0 else -1
         return out
 
+    def _ranks_to_rids(self, ranks: np.ndarray) -> np.ndarray:
+        """Device pair planes carry name ranks; the pair contract is rid-based."""
+        if not hasattr(self, "_rank_inv"):
+            rank_of = np.asarray(self.index.name_rank, dtype=np.int64)
+            self._rank_inv = np.zeros(len(rank_of), dtype=np.int32)
+            self._rank_inv[rank_of] = np.arange(len(rank_of), dtype=np.int32)
+        return self._rank_inv[ranks]
+
     def _host_count_many(self, items):
         """Exact host counting (the native whole-pipeline kernel when built)."""
         if _has_native_count():
             return self.host.count_overlaps_many(items)
         return [self.host.count_overlaps(nm, sq) for nm, sq in items]
+
+    def _host_count_pairs(self, items):
+        """``(count, had, rids|None)`` triples; rids is None without the
+        native pairs kernel or when a row truncated (the strategies
+        recover those rows with ``map_read``)."""
+        if _has_native_count():
+            return self.host.count_overlaps_many(items, want_pairs=True)
+        return [(c, h, None) for c, h in self._host_count_many(items)]
+
+    def _host_count_filtered(self, items, ratio, mode="internal", want_pairs=False):
+        """Exact host ``-F`` counting: unique targets with a mapping that
+        passes the overhang filter (``mode="internal"``: ``is_internal``,
+        ``twoset.rs:286-301``; ``"overhang"``: the inverted
+        ``--use-min-ref`` comparison, ``twoset.rs:493-517``; ``ratio``
+        None: every mapping passes), and the pre-filter had-mapping flag;
+        with ``want_pairs`` the passing rids too.  ``map_read``-based, on
+        threads (its chain DP releases the GIL)."""
+        if ratio is None:
+            dropped = lambda m: False
+        elif mode == "internal":
+            dropped = lambda m: m.is_internal(ratio)
+        else:
+            dropped = lambda m: overhang_heavy(m, ratio)
+
+        def one(item):
+            recs = self.host.map_read(*item)
+            uniq = {}
+            for m in recs:
+                if m.target_name not in uniq and not dropped(m):
+                    uniq[m.target_name] = None
+            if want_pairs:
+                rids = np.array([self.host._name_to_rid[t] for t in uniq], dtype=np.int32)
+                return len(uniq), int(bool(recs)), rids
+            return len(uniq), int(bool(recs))
+
+        if len(items) <= 1:
+            return [one(it) for it in items]
+        with ThreadPoolExecutor(min(os.cpu_count() or 2, 8)) as ex:
+            return list(ex.map(one, items))
+
+    def supports_device_filter(self) -> bool:
+        """Whether ``-F`` can run on the device: chain starts pack as
+        ``(rpos << 16) | qpos`` in int32, so every target must be shorter
+        than 2^15 and every padded query (plus k) shorter than 2^16."""
+        return (
+            self.device_ok
+            and int(np.max(self.index.lengths)) < (1 << 15)
+            and self.length_buckets[-1] + self.params.k < (1 << 16)
+        )
 
     def triage_flags(self, live, n_anchors, cap, max_run, mcount, mcap, codes, lengths):
         """Flag rows whose device result cannot be guaranteed exact and
@@ -153,12 +228,14 @@ class DeviceOverlapEngine:
                 self.fallback_triggers[key] += c_t
         return prior | t_quirk
 
-    def _host_share_fraction(self, n_dev_rows: int) -> float:
+    def _host_share_fraction(self, n_dev_rows: int, pairs_wanted: bool = False) -> float:
         """Fraction of device-eligible rows handed to the concurrent host
         engine, ``c*r / (c*r + 1)`` for ``c`` host cores and ``r`` the
         per-core host rate over the device rate.  ``r`` defaults to 0
         until it is calibrated on the card (``LRGE_HOST_RATE_RATIO``;
-        ``LRGE_HOST_SHARE`` sets the share directly)."""
+        ``LRGE_HOST_SHARE`` sets the share directly).  Pair collection
+        without the native pairs kernel takes no share: its rows would
+        fall to the slow ``map_read`` recovery."""
         if "LRGE_HOST_SHARE" in os.environ:
             share = float(os.environ["LRGE_HOST_SHARE"])
         elif not _has_native_count():
@@ -167,22 +244,26 @@ class DeviceOverlapEngine:
             c = os.cpu_count() or 2
             r = float(os.environ.get("LRGE_HOST_RATE_RATIO", "0"))
             share = min(0.9, c * r / (c * r + 1.0))
+        if pairs_wanted and not _has_native_count():
+            share = 0.0
         if share <= 0 or native is None or n_dev_rows < 4 * self.batch_size:
             return 0.0
         return share
 
-    def plan_rows(self, seqs, rows, *, warming=False):
+    def plan_rows(self, seqs, rows, *, pairs_wanted=False, filter_active=False, warming=False):
         """Partition ``rows`` into ``(host_rows, host_share_rows, {L:
         bucket_rows})``: reads longer than the last bucket or in a sparse
         bucket (<= ``LRGE_DEVICE_MIN_ROWS``) go to the host, the shortest
-        device-eligible rows form the host share, the rest fill buckets."""
+        device-eligible rows form the host share (none under ``-F``,
+        whose host counting is ``map_read``-based and slow), the rest
+        fill buckets."""
         max_bucket = self.length_buckets[-1]
         long_rows = [i for i in rows if len(seqs[i]) > max_bucket]
         dev_rows = [i for i in rows if len(seqs[i]) <= max_bucket]
         min_rows = 0 if warming else int(os.environ.get("LRGE_DEVICE_MIN_ROWS", 32))
         host_share_rows = []
-        if not warming:
-            k = int(len(dev_rows) * self._host_share_fraction(len(dev_rows)))
+        if not warming and not filter_active:
+            k = int(len(dev_rows) * self._host_share_fraction(len(dev_rows), pairs_wanted))
             if k:
                 by_len = sorted(dev_rows, key=lambda i: len(seqs[i]))
                 host_share_rows = by_len[:k]
@@ -198,9 +279,10 @@ class DeviceOverlapEngine:
                 bucket_rows[L] = rows_b
         return long_rows, host_share_rows, bucket_rows
 
-    def warmup(self, lengths=None) -> None:
+    def warmup(self, lengths=None, filter_ratio=None, filter_mode="internal", want_pairs=False) -> None:
         """Run each bucket that the mapping pass will use once on two
-        dummy reads (builds the chain kernel and primes the allocator)."""
+        dummy reads, in the pass's own mode (builds the chain kernel and
+        primes the allocator)."""
         if not self.device_ok:
             return
         if _has_native_count():
@@ -210,18 +292,23 @@ class DeviceOverlapEngine:
         if lengths is not None:
             max_bucket = self.length_buckets[-1]
             dev_lens = sorted(x for x in lengths if x <= max_bucket)
-            k = int(len(dev_lens) * self._host_share_fraction(len(dev_lens)))
-            lengths = dev_lens[k:]
+            share = 0.0 if filter_ratio is not None else self._host_share_fraction(len(dev_lens), want_pairs)
+            lengths = dev_lens[int(len(dev_lens) * share):]
         lo = 0
         for L in self.length_buckets:
             if lengths is None or sum(lo < x <= L for x in lengths) > min_rows:
                 fake = [b"ACGT" * (max(lo + 4, L // 2) // 4)] * 2
-                self.count_batch([b"__warm0", b"__warm1"], fake, warming=True)
+                self.count_batch(
+                    [b"__warm0", b"__warm1"], fake, collect_pairs={} if want_pairs else None,
+                    filter_ratio=filter_ratio, filter_mode=filter_mode, warming=True,
+                )
             lo = L
 
-    def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid):
+    def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
         """Enqueue the super-batches of one length bucket; yields
-        ``(nb, A, codes, lengths, ids, packed_device_plane)``."""
+        ``(nb, A, codes, lengths, ids, packed_device_plane,
+        pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
+        arguments of :func:`sketch_map_many`."""
         B = self.batch_size
         # anchor capacity scales with the padded length (A = L at the
         # default), dispatch depth shrinks to keep group work constant
@@ -244,31 +331,66 @@ class DeviceOverlapEngine:
             dual = np.where(ids >= 0, qdualrank[ids], 0).astype(np.int32)
             selfr = np.where(ids >= 0, qselfrid[ids], -1).astype(np.int32)
             put = lambda a: torch.from_numpy(a).to(self.device)
-            packed = sketch_map_many(
+            packed, pairs = sketch_map_many(
                 put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
-                self.gdev, p, num_anchors=A, window=self.window,
+                self.gdev, p, num_anchors=A, window=self.window, **mode,
             )
-            yield len(group), A, codes, lengths, ids, packed
+            yield len(group), A, codes, lengths, ids, packed, pairs
 
-    def count_batch(self, names: list, seqs: list, *, warming: bool = False) -> BatchCounts:
-        """Count overlaps per query (exact: flagged rows are recomputed on the host)."""
+    def count_batch(
+        self, names: list, seqs: list, collect_pairs=None, filter_ratio=None,
+        filter_mode="internal", *, warming: bool = False,
+    ) -> BatchCounts:
+        """Count overlaps per query (exact: flagged rows are recomputed on the host).
+
+        ``collect_pairs`` (a dict) receives each query's passing target
+        rids, ``qid -> int32 array`` (the ava and ``--use-min-ref``
+        accumulation); rows whose host recompute yields no id list are
+        left out, for the caller to recover.  ``filter_ratio`` applies
+        ``-F`` on the device (check :meth:`supports_device_filter`
+        first): counts and pair lists then hold only targets that pass
+        it (``filter_mode`` ``"internal"`` or ``"overhang"``), and
+        ``had_mapping`` stays the pre-filter flag."""
         n = len(seqs)
         counts = np.zeros(n, dtype=np.int32)
         had = np.zeros(n, dtype=bool)
+        if filter_ratio is not None:
+            if self.device_ok and not self.supports_device_filter():
+                raise ValueError("-F on the device needs targets < 2^15 bp (supports_device_filter)")
+            host_fn = lambda items: self._host_count_filtered(
+                items, filter_ratio, mode=filter_mode, want_pairs=collect_pairs is not None
+            )
+        elif collect_pairs is not None:
+            host_fn = self._host_count_pairs
+        else:
+            host_fn = self._host_count_many
+
+        def take_host(rows, results):
+            for i, res in zip(rows, results):
+                counts[i], had[i] = res[0], res[1]
+                if collect_pairs is not None and res[2] is not None:
+                    collect_pairs[i] = res[2]
+
         if not self.device_ok:
-            for i, (c, h) in enumerate(self._host_count_many(list(zip(names, seqs)))):
-                counts[i], had[i] = c, h
+            take_host(range(n), host_fn(list(zip(names, seqs))))
             return BatchCounts(counts, had, n)
 
         p = self.params
         max_bucket = self.length_buckets[-1]
-        long_rows, host_share_rows, bucket_rows = self.plan_rows(seqs, range(n), warming=warming)
+        long_rows, host_share_rows, bucket_rows = self.plan_rows(
+            seqs, range(n), pairs_wanted=collect_pairs is not None,
+            filter_active=filter_ratio is not None, warming=warming,
+        )
+        mode = dict(
+            want_pairs=collect_pairs is not None, want_extents=filter_ratio is not None,
+            overhang_ratio=float(filter_ratio or 0.2), filter_mode=filter_mode,
+        )
         # long-tail and host-share reads run on the host concurrently with
         # the device (the native kernel releases the GIL)
         host_rows_all = long_rows + host_share_rows
         pool = ThreadPoolExecutor(1) if host_rows_all else None
         host_future = (
-            pool.submit(self._host_count_many, [(names[i], seqs[i]) for i in host_rows_all])
+            pool.submit(host_fn, [(names[i], seqs[i]) for i in host_rows_all])
             if pool is not None
             else None
         )
@@ -281,10 +403,10 @@ class DeviceOverlapEngine:
             inflight = []
             for L in self.length_buckets:
                 if bucket_rows.get(L):
-                    inflight.extend(self._dispatch(L, bucket_rows[L], seqs, qdualrank, qselfrid))
+                    inflight.extend(self._dispatch(L, bucket_rows[L], seqs, qdualrank, qselfrid, **mode))
             # stage 2: collect and triage
             retry = []
-            for nb, A, codes, lengths, ids, packed in inflight:
+            for nb, A, codes, lengths, ids, packed, pairs in inflight:
                 arr = packed.cpu().numpy().astype(np.int64)
                 bcounts, n_anchors, max_run, mcount = (arr[..., j][:nb] for j in range(4))
                 live = ids[:nb] >= 0
@@ -292,19 +414,33 @@ class DeviceOverlapEngine:
                     live, n_anchors, A, max_run, mcount, minimizer_cap(codes.shape[2]),
                     codes[:nb], lengths[:nb],
                 )
+                if filter_ratio is not None:
+                    raw_had = (bcounts >> HAD_BIT) > 0
+                    bcounts = bcounts & ((1 << HAD_BIT) - 1)
+                else:
+                    raw_had = bcounts > 0
+                if collect_pairs is not None:
+                    pair_ranks = pairs.cpu().numpy()[:nb]
+                    # more passing targets than the pair plane holds
+                    t_pair = ((pair_ranks >= 0).sum(axis=2) < bcounts) & live & ~needs
+                    if t_pair.any():
+                        self.fallback_triggers["pair_truncation"] += int(t_pair.sum())
+                    needs = needs | t_pair
                 retry.extend(ids[:nb][needs].tolist())
                 ok = live & ~needs
-                counts[ids[:nb][ok]] = bcounts[ok]
-                had[ids[:nb][ok]] = bcounts[ok] > 0
+                ok_ids = ids[:nb][ok]
+                counts[ok_ids] = bcounts[ok]
+                had[ok_ids] = raw_had[ok]
+                if collect_pairs is not None:
+                    for qid, pr in zip(ok_ids, pair_ranks[ok]):
+                        collect_pairs[qid] = self._ranks_to_rids(pr[pr >= 0])
             # stage 3: exact host recompute of the flagged rows
-            fallback = 0
-            for qid, (c, h) in zip(retry, self._host_count_many([(names[i], seqs[i]) for i in retry])):
-                counts[qid], had[qid] = c, h
-                fallback += 1
+            take_host(retry, host_fn([(names[i], seqs[i]) for i in retry]))
+            fallback = len(retry)
             if host_future is not None:
+                take_host(host_rows_all, host_future.result())
                 share_set = set(host_share_rows)
-                for i, (c, h) in zip(host_rows_all, host_future.result()):
-                    counts[i], had[i] = c, h
+                for i in host_rows_all:
                     if i in share_set:
                         # deliberate heterogeneous scheduling, not a fallback
                         self.fallback_triggers["host_share"] += 1

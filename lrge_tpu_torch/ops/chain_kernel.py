@@ -15,6 +15,16 @@ that are the stored predecessor of an examined anchor); ties go to the
 nearest predecessor.  Outputs are ``f`` (NEG where invalid) and
 ``broke`` (the break fired inside the window).
 
+With ``extents=True`` (the ``-F`` path) the DP also carries the chain
+state that the XLA scan keeps for its extent reduce
+(``overlap_jax.py:661-788``), taken from each anchor's chosen
+predecessor: ``cnt`` (chain anchor count), ``start`` (``rpos << 16 |
+qpos`` of the chain's first anchor, int32) and ``rmf`` (running max of
+``f`` shifted left one, with a valley bit set once ``f`` fell more than
+``bw`` below it).  The card runs a second compiled variant of the
+kernel for it (``EXT`` in ``csrc/chain_dp.cu``) with its own launch
+counter, ``chain_dp_skip.ext_launches``.
+
 What bounds it on an H100: the DP is a serial walk over a row's anchors
 with tiny bytes per row (four int32 inputs and two outputs per anchor),
 so it is latency bound: about 30 warp-shuffle rounds per anchor (three
@@ -23,7 +33,10 @@ ring push).  The design (``csrc/chain_dp.cu``) keeps the whole
 predecessor ring in registers with one warp per row, so no anchor state
 touches shared or device memory; each row stops at its own valid-anchor
 count; anchors are loaded and results stored 32 at a time, coalesced,
-and broadcast to the lanes with one shuffle.
+and broadcast to the lanes with one shuffle.  The extent variant adds
+three dependent ``__shfl_sync`` gathers (the chosen predecessor's
+carries) and three ring pushes per anchor, and three more rings in
+registers, which weigh most at W = 128.
 
 On a CPU tensor the wrapper runs :func:`chain_dp_skip_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -91,6 +104,9 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P, P, P, P, P, I, I, ctypes.c_float, I, I, I, I, I, P, P, P]
     fn.restype = I
+    fn = lib.chain_dp_skip_ext_launch
+    fn.argtypes = [P, P, P, P, P, I, I, ctypes.c_float, I, I, I, I, I, P, P, P, P, P, P]
+    fn.restype = I
     return lib
 
 
@@ -118,8 +134,11 @@ def chain_dp_skip(
     bw: int,
     max_skip: int = 25,
     window: int = 32,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chain scores ``f`` and ``broke`` flags, both ``[B, A]`` int32."""
+    extents: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Chain scores ``f`` and ``broke`` flags, both ``[B, A]`` int32;
+    with ``extents``, also ``cnt``, ``start`` and ``rmf`` (``[B, A]``
+    int32 each)."""
     B, A = key2.shape
     dev = key2.device
     _check("key2", key2, (B, A), dev)
@@ -130,27 +149,32 @@ def chain_dp_skip(
         raise ValueError(f"window must be 16, 32, 64 or 128, got {window}")
     kw = dict(span=span, max_gap=max_gap, bw=bw, max_skip=max_skip, window=window)
     if dev.type == "cpu":
-        return chain_dp_skip_plain(key2, rpos, qpos, valid, nvalid, pen_gap, **kw)
+        return chain_dp_skip_plain(key2, rpos, qpos, valid, nvalid, pen_gap, extents=extents, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    f = torch.empty((B, A), dtype=torch.int32, device=dev)
-    broke = torch.empty((B, A), dtype=torch.int32, device=dev)
+    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(5 if extents else 2)]
     if B == 0 or A == 0:
-        return f, broke
+        return tuple(outs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().chain_dp_skip_launch(
+        lib = _lib()
+        launch = lib.chain_dp_skip_ext_launch if extents else lib.chain_dp_skip_launch
+        err = launch(
             key2.data_ptr(), rpos.data_ptr(), qpos.data_ptr(), valid.data_ptr(),
             nvalid.data_ptr(), B, A, float(np.float32(pen_gap)), span, max_gap, bw,
-            max_skip, window, f.data_ptr(), broke.data_ptr(), stream,
+            max_skip, window, *(o.data_ptr() for o in outs), stream,
         )
     if err != 0:
         raise RuntimeError(f"chain_dp_skip launch failed: CUDA error {err}")
-    chain_dp_skip.launches += 1
-    return f, broke
+    if extents:
+        chain_dp_skip.ext_launches += 1
+    else:
+        chain_dp_skip.launches += 1
+    return tuple(outs)
 
 
-chain_dp_skip.launches = 0
+chain_dp_skip.launches = 0  # the main path's variant
+chain_dp_skip.ext_launches = 0  # the extent (-F) variant
 
 
 def _mg_log2(x: torch.Tensor) -> torch.Tensor:
@@ -164,10 +188,12 @@ def _mg_log2(x: torch.Tensor) -> torch.Tensor:
 
 def chain_dp_skip_plain(
     key2, rpos, qpos, valid, nvalid, pen_gap, *, span, max_gap, bw, max_skip=25, window=32,
+    extents=False,
 ):
     """Plain PyTorch version: one step per anchor slot over ``[B, W]``
     predecessor rings (newest first), mirroring the scan step of
-    ``_expand_sort_chain`` (overlap_jax.py:663-788)."""
+    ``_expand_sort_chain`` (overlap_jax.py:663-788), its extent carries
+    included when ``extents`` is set."""
     B, A = key2.shape
     W = window
     dev = key2.device
@@ -184,6 +210,9 @@ def chain_dp_skip_plain(
     ring_f = torch.full((B, W), NEG, **i64)
     ring_ok = torch.zeros((B, W), dtype=torch.bool, device=dev)
     ring_p = torch.full((B, W), -1, **i64)
+    if extents:
+        cnt, start, rmf = (torch.zeros((B, A), **i64) for _ in range(3))
+        ring_cnt, ring_sq, ring_rmf = (torch.zeros((B, W), **i64) for _ in range(3))
     dpos = torch.arange(W, **i64)[None, :]
     neg_col = torch.full((B, 1), NEG, **i64)
     false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
@@ -232,10 +261,25 @@ def chain_dp_skip_plain(
         f[:, i] = f_t
         broke[:, i] = (overed[:, -1] & cv).long()
         push = lambda new, ring: torch.cat([new[:, None], ring[:, : W - 1]], dim=1)
+        if extents:
+            # the chosen predecessor's carries (bestd < W always)
+            at_best = lambda ring: ring.gather(1, bestd[:, None])[:, 0]
+            cnt_prev, sq_prev, rmf_prev = at_best(ring_cnt), at_best(ring_sq), at_best(ring_rmf)
+            prevmax = rmf_prev >> 1
+            vflag = (rmf_prev & 1) | ((prevmax - f_t) > bw).long()
+            c_t = torch.where(cv, torch.where(has_pred, cnt_prev + 1, 1), 0)
+            s_t = torch.where(cv, torch.where(has_pred, sq_prev, (cr[:, 0] << 16) | cq[:, 0]), 0)
+            r_t = torch.where(
+                cv, torch.where(has_pred, (torch.maximum(prevmax, f_t) << 1) | vflag, f_t << 1), 0
+            )
+            cnt[:, i], start[:, i], rmf[:, i] = c_t, s_t, r_t
+            ring_cnt, ring_sq, ring_rmf = push(c_t, ring_cnt), push(s_t, ring_sq), push(r_t, ring_rmf)
         ring_key = push(ck[:, 0], ring_key)
         ring_rpos = push(cr[:, 0], ring_rpos)
         ring_qpos = push(cq[:, 0], ring_qpos)
         ring_f = push(f_t, ring_f)
         ring_ok = push(cv, ring_ok)
         ring_p = push(p_t, ring_p)
+    if extents:
+        return tuple(x.to(torch.int32) for x in (f, broke, cnt, start, rmf))
     return f.to(torch.int32), broke.to(torch.int32)

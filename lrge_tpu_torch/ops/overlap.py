@@ -6,9 +6,12 @@ sketch, cuckoo (or bucketed) dictionary probe with the occurrence gate
 and the q_occ filter, anchor expansion, the (rid, strand, rpos) sort,
 the chain DP (a hand-written CUDA kernel on the card, see
 ``chain_kernel.py``), and the per-target reduce with the window-miss
-and score-clip guards.  Every tensor lives on the device of the index
-planes; integers ride in int64 except where a plane or a kernel takes
-int32.
+and score-clip guards.  Optionally the reduce also compacts each row's
+passing targets into a pair plane (ava and ``--use-min-ref``) and
+applies the ``-F`` overhang filter from the chain extents that the
+kernel's extent variant carries.  Every tensor lives on the device of
+the index planes; integers ride in int64 except where a plane or a
+kernel takes int32.
 
 The index planes (:class:`GroupedDeviceIndex`) are built from the host
 index with numpy builders copied from the reference, because the
@@ -25,6 +28,12 @@ import torch
 
 from .chain_kernel import IMAX, chain_dp_skip
 from .sketch import INF, sketch_core
+
+# passing-target slots per row in the pair plane (overlap_jax.py:48);
+# rows with more passing targets are recomputed on the host
+PAIR_CAP = 512
+# under -F the count plane carries the pre-filter "had any mapping" bit here
+HAD_BIT = 24
 
 # ---------------------------------------------------------------------------
 # numpy builders, copied from lrge_tpu/ops/overlap_jax.py
@@ -440,29 +449,105 @@ def _fill_forward(x: torch.Tensor) -> torch.Tensor:
     return torch.where(last >= 0, x.gather(1, last.clamp(min=0)), 0)
 
 
-def _seg_best(f, boundary):
+def _seg_best(f, boundary, want_slot=False):
     """Segmented best score over rid runs: a monotone run id packed above
-    the score (clipped at 2^15-2) turns the segmented max into one cummax."""
+    the score (clipped at 2^15-2) turns the segmented max into one cummax.
+    With ``want_slot``, also each run's slot of its best score, the
+    LARGEST slot among ties (the backtrack's peel order): a second
+    run-id-packed cummax over the positions that equal their running max.
+    Returns ``(best_f, best_slot or None)``."""
     FB = 15
     if f.shape[1] > (1 << FB):
         raise ValueError("packed segmented reduce needs A <= 32768")
     runid = torch.cumsum(boundary.long(), dim=1)
     fq = f.clamp(-1, (1 << FB) - 2) + 1  # NEG/invalid -> 0
-    seg = torch.cummax((runid << FB) | fq, dim=1).values
-    return (seg & ((1 << FB) - 1)) - 1
+    pk = (runid << FB) | fq
+    seg = torch.cummax(pk, dim=1).values
+    best_f = (seg & ((1 << FB) - 1)) - 1
+    if not want_slot:
+        return best_f, None
+    slots = torch.arange(f.shape[1], device=f.device).expand_as(f)
+    # every run's first slot is a record, so the cummax never leaks across runs
+    rec = torch.cummax(torch.where(pk == seg, (runid << FB) | slots, -1), dim=1).values
+    return best_f, rec & ((1 << FB) - 1)
 
 
-def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score):
-    """Per-row unique-target counts and the exactness flag (``W+1`` when
+def _extent_filter(f, rid_s, key2_s, valid_s, boundary, run_end, min_score, ext):
+    """``-F`` per rid run, decided from its best chain (which the backtrack
+    peels intact): ``(passing, had_any, suspicious)``.  ``filter_mode``
+    ``"internal"`` drops internal matches (``mapping.rs:59-77``);
+    ``"overhang"`` drops overhang-heavy ones (the ``--use-min-ref``
+    comparison, ``twoset.rs:493-517``).  A row is suspicious when a best
+    chain holds a valley the backtrack would trim, or was dropped while a
+    same-target secondary chain could still pass: only the host decides
+    those (overlap_jax.py:943-1008)."""
+    B, A = f.shape
+    best_f, best_slot = _seg_best(f, boundary, want_slot=True)
+    score_ok = run_end & valid_s & (best_f >= min_score)
+    at_best = lambda x: x.gather(1, best_slot)
+    span = ext["span"]
+    s_best = at_best(ext["starts"])
+    cnt_best = at_best(ext["cnt"])
+    rs = (s_best >> 16) + 1 - span
+    re_ = at_best(ext["rpos"]) + 1
+    qs_c = (s_best & 0xFFFF) + 1 - span
+    qe_c = at_best(ext["qpos"]) + 1
+    qlen = ext["qlen"][:, None]
+    rev = (at_best(key2_s) & 1) == 1
+    qs = torch.where(rev, qlen - qe_c, qs_c)
+    qe = torch.where(rev, qlen - qs_c, qe_c)
+    tlen = _gather1(ext["tlen"], rid_s)
+    ov = torch.where(
+        rev,
+        torch.minimum(qs, tlen - re_) + torch.minimum(qlen - qe, rs),
+        torch.minimum(qs, rs) + torch.minimum(qlen - qe, tlen - re_),
+    )
+    maplen = torch.maximum(qe - qs, re_ - rs).clamp(min=1)
+    # float32 as in the reference: float64 would flip boundary rows
+    ratio = torch.tensor(np.float32(ext["ratio"]), device=f.device)
+    if ext["mode"] == "internal":
+        dropped = (ov.to(torch.float32) / maplen.to(torch.float32)) < ratio
+    else:
+        dropped = ov > (maplen.to(torch.float32) * ratio).long()  # truncation, as int32()
+    idxs = torch.arange(A, device=f.device).expand(B, A)
+    run_len = idxs - torch.cummax(torch.where(boundary, idxs, -1), dim=1).values + 1
+    sec_possible = (run_len - cnt_best) * span >= min_score
+    valley = (at_best(ext["rmf"]) & 1) == 1
+    suspicious = (score_ok & (valley | (dropped & sec_possible))).any(dim=1)
+    return score_ok & ~dropped, score_ok.any(dim=1), suspicious
+
+
+def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs=False, extents=None):
+    """Per-row unique-target counts, the exactness flag (``W+1`` when
     some anchor's DP may have missed a predecessor outside the window,
-    or a score reached the reduce's clip)."""
+    a score reached the reduce's clip, or an ``-F`` decision is the
+    host's) and, with ``want_pairs``, the ``[B, min(A, PAIR_CAP)]``
+    plane of passing target ranks (-1 padded; ``None`` otherwise).
+    With ``extents`` the counts are filtered and carry the pre-filter
+    had-mapping bit at ``HAD_BIT``."""
     B, A = f.shape
     dev = f.device
     ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
     change = rid_s[:, 1:] != rid_s[:, :-1]
-    seg_f = _seg_best(f, torch.cat([ones, change], 1))
-    passing = torch.cat([change, ones], 1) & valid_s & (seg_f >= min_score)
-    counts = passing.sum(dim=1)
+    boundary = torch.cat([ones, change], 1)
+    run_end = torch.cat([change, ones], 1)
+    suspicious = None
+    if extents is None:
+        seg_f, _ = _seg_best(f, boundary)
+        passing = run_end & valid_s & (seg_f >= min_score)
+        counts = passing.sum(dim=1)
+    else:
+        passing, had_any, suspicious = _extent_filter(
+            f, rid_s, key2_s, valid_s, boundary, run_end, min_score, extents
+        )
+        counts = passing.sum(dim=1) | (had_any.long() << HAD_BIT)  # count <= A < 2^24
+    pairs = None
+    if want_pairs:
+        # passing run-end rids to the front, in slot order (stable sort)
+        PMAX = min(A, PAIR_CAP)
+        idxs = torch.arange(A, device=dev).expand(B, A)
+        pk_s, order = torch.sort(torch.where(passing, idxs, IMAX), dim=1, stable=True)
+        pairs = torch.where(pk_s[:, :PMAX] != IMAX, rid_s.gather(1, order[:, :PMAX]), -1)
     # window-miss detector: exact when the (rid, strand) run fits the
     # ring or the skip break fired inside the visible window
     idxs = torch.arange(A, device=dev).expand(B, A)
@@ -471,17 +556,23 @@ def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score):
     run_depth = torch.where(valid_s, idxs - run_start, 0)
     missed = valid_s & (run_depth > W) & (broke == 0)
     inexact = missed.any(dim=1) | (f >= (1 << 15) - 2).any(dim=1)
-    return counts, torch.where(inexact, W + 1, 0)
+    if suspicious is not None:
+        inexact = inexact | suspicious
+    return counts, torch.where(inexact, W + 1, 0), pairs
 
 
 def map_found_core(
     lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, pen_gap, *,
     k, max_gap, bw, min_score, num_anchors, window, no_dual, no_diag, max_chain_skip,
+    want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
 ):
     """Map rows whose posting ranges ``(lo, occ)`` the lookup already
     fetched (the reference's ``pre_ranges`` form, packed_pos, rank
-    postings).  Returns ``(counts, n_anchors, max_run)``; ``n_anchors`` >
-    ``num_anchors`` flags overflow."""
+    postings).  Returns ``(counts, n_anchors, max_run, pairs)``;
+    ``n_anchors`` > ``num_anchors`` flags overflow.  ``want_pairs`` and
+    ``want_extents`` (the ``-F`` filter, with ``overhang_ratio`` and
+    ``filter_mode``) are as in :func:`_reduce_counts`; only
+    ``want_extents`` launches the kernel's extent variant."""
     B, M = occ.shape
     A = num_anchors
     dev = occ.device
@@ -531,19 +622,36 @@ def map_found_core(
     rid_s = torch.where(valid_s, key2_s >> 1, IMAX)
     # ---- chain DP (the CUDA kernel on the card)
     i32 = lambda x: x.to(torch.int32).contiguous()
-    f, broke = chain_dp_skip(
+    dp = chain_dp_skip(
         i32(key2_s), i32(rpos_s), i32(qpos_s), i32(valid_s), i32(valid_s.sum(dim=1)),
         pen_gap, span=k, max_gap=max_gap, bw=bw, max_skip=max_chain_skip, window=window,
+        extents=want_extents,
     )
-    counts, max_run = _reduce_counts(f.long(), broke, rid_s, key2_s, valid_s, window, min_score)
-    return counts, total, max_run
+    f, broke = dp[0].long(), dp[1]
+    extents = None
+    if want_extents:
+        cnt, starts, rmf = (x.long() for x in dp[2:])
+        extents = dict(
+            starts=starts, rmf=rmf, cnt=cnt, rpos=rpos_s, qpos=qpos_s, qlen=qlen, tlen=gi.tlen,
+            ratio=overhang_ratio, span=k, mode=filter_mode,
+        )
+    counts, max_run, pairs = _reduce_counts(
+        f, broke, rid_s, key2_s, valid_s, window, min_score, want_pairs=want_pairs, extents=extents
+    )
+    return counts, total, max_run, pairs
 
 
-def sketch_map_many(codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window):
+def sketch_map_many(
+    codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window,
+    want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
+):
     """Whole ONT pipeline over a super-batch flattened to one row axis.
 
     ``codes_p`` is 2-bit packed (``[NB, B, L//4]`` uint8).  Returns the
-    ``[NB, B, 4]`` int32 plane (counts, n_anchors, max_run, mcount)."""
+    ``[NB, B, 4]`` int32 plane (counts, n_anchors, max_run, mcount) and
+    the ``[NB, B, min(A, PAIR_CAP)]`` int32 plane of passing target
+    ranks with ``want_pairs`` (else ``None``).  ``want_extents`` applies
+    the ``-F`` filter (:func:`map_found_core`)."""
     NB, B, Lq = codes_p.shape
     L = Lq * 4
     R = NB * B
@@ -553,10 +661,14 @@ def sketch_map_many(codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceInde
     _, mps, mcount, lo, occ = sketch_lookup_core(
         codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac
     )
-    counts, n_anchors, max_run = map_found_core(
+    counts, n_anchors, max_run, pairs = map_found_core(
         lo, occ, mps, qlen, qdualrank.reshape(R).long(), qselfrid.reshape(R).long(), gi,
         p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw, min_score=p.min_chain_score,
         num_anchors=num_anchors, window=window, no_dual=p.no_dual, no_diag=p.no_diag,
-        max_chain_skip=p.max_chain_skip,
+        max_chain_skip=p.max_chain_skip, want_pairs=want_pairs, want_extents=want_extents,
+        overhang_ratio=overhang_ratio, filter_mode=filter_mode,
     )
-    return torch.stack([counts, n_anchors, max_run, mcount], dim=-1).reshape(NB, B, 4).to(torch.int32)
+    plane = torch.stack([counts, n_anchors, max_run, mcount], dim=-1).reshape(NB, B, 4).to(torch.int32)
+    if pairs is not None:
+        pairs = pairs.reshape(NB, B, -1).to(torch.int32)
+    return plane, pairs

@@ -6,7 +6,8 @@
 * ``python -m lrge_tpu_torch`` on the device engine (here on the CPU)
   prints what ``python -m lrge_tpu --engine host`` prints, byte for
   byte, and never loads JAX.
-* Modes outside the slice raise; nothing falls back to another engine.
+* Modes outside the port so far (PacBio on the device, several hosts)
+  raise; nothing falls back to another engine.
 """
 
 import gzip
@@ -204,10 +205,9 @@ def test_device_engine_without_cuda_raises(verify_reads):
 @pytest.mark.parametrize(
     "extra,env,item",
     [
-        (["-n", "100"], {}, "item 9"),
-        (["--use-min-ref"], {}, "item 9"),
-        (["-F", "--engine", "device"], {}, "item 10"),
         (["-P", "pb", "--engine", "device"], {}, "item 11"),
+        (["-n", "100", "-P", "pb", "--engine", "device"], {}, "item 11"),
+        (["--use-min-ref", "-P", "pb", "--engine", "device"], {}, "item 11"),
         ([], {"LRGE_COORDINATOR": "localhost:1234"}, "item 13"),
     ],
 )

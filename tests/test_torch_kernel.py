@@ -45,6 +45,21 @@ def anchor_rows(rng, B, A, *, colinear=False):
     return [torch.from_numpy(a) for a in (key2, rpos, qpos, valid)]
 
 
+def put_valley_row(args):
+    """Row 0 becomes one chain that climbs for 200 anchors, then steps
+    off the diagonal (dd = 400, score -42 a step) until f sits more than
+    ``bw`` below its running max: the extent carries' valley bit."""
+    n0, n1 = 200, 60
+    rp = np.concatenate([15 * np.arange(n0), 15 * (n0 - 1) + 410 * np.arange(1, n1 + 1)]) + 7
+    qp = np.concatenate([15 * np.arange(n0), 15 * (n0 - 1) + 10 * np.arange(1, n1 + 1)]) + 3
+    key2, rpos, qpos, valid = args[:4]
+    key2[0], rpos[0], qpos[0], valid[0] = IMAX, 0, 0, 0
+    key2[0, : n0 + n1] = 0
+    rpos[0, : n0 + n1] = torch.from_numpy(rp)
+    qpos[0, : n0 + n1] = torch.from_numpy(qp)
+    valid[0, : n0 + n1] = 1
+
+
 def need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -97,6 +112,28 @@ def test_cuda_kernel_matches_plain(window):
         assert torch.equal(f.cpu(), f_ref) and torch.equal(broke.cpu(), broke_ref)
         if colinear and window >= 64:
             assert broke_ref.any(), "corpus must exercise the skip break"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [16, 32, 64, 128])
+def test_cuda_extent_kernel_matches_plain(window):
+    need_cuda()
+    for seed, colinear in ((0, False), (7, True)):
+        args = anchor_rows(np.random.default_rng(seed), 37, 300, colinear=colinear)
+        put_valley_row(args)
+        args.append(args[3].sum(dim=1).to(torch.int32))
+        before, before_main = chain_dp_skip.ext_launches, chain_dp_skip.launches
+        got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window, extents=True, **KW)
+        torch.cuda.synchronize()
+        assert chain_dp_skip.ext_launches == before + 1 and chain_dp_skip.launches == before_main
+        want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, extents=True, **KW)
+        for name, g, w in zip(("f", "broke", "cnt", "start", "rmf"), got, want):
+            assert torch.equal(g.cpu(), w), name
+        # the extent variant's f and broke are the main variant's
+        f, broke = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, **KW)
+        assert torch.equal(want[0], f) and torch.equal(want[1], broke)
+        assert (want[2][1:] > 1).any(), "chains must grow past one anchor"
+        assert (want[4][0] & 1).any(), "row 0 must carry a valley"
 
 
 @pytest.mark.gpu

@@ -5,7 +5,9 @@ The packed ``[NB, B, 4]`` plane (counts, n_anchors, max_run, mcount) of
 sketch_map_many(flatten=True, packed_codes=True)`` on the
 ``tests/test_device_engine.py`` corpora: two-set queries, all-vs-all
 rows (no-dual and no-diag masks live), and dense error-free runs at
-window 16, which must produce window-miss rows.
+window 16, which must produce window-miss rows.  With pair lists and
+the ``-F`` extent filter (both modes), the planes and the pair planes
+must equal the reference's on a containment-rich corpus.
 """
 
 import numpy as np
@@ -15,9 +17,10 @@ torch = pytest.importorskip("torch")
 # tiny per-op work: intra-op threads only contend with the other workers
 torch.set_num_threads(1)
 import jax.numpy as jnp
-from test_device_engine import make_reads
+from test_device_engine import _contained_corpus, make_reads
 
 from lrge_tpu.ops import overlap_jax as ref
+from lrge_tpu.io import iter_records
 from lrge_tpu.ops.encode import make_batches
 from lrge_tpu.ops.index import build_index
 from lrge_tpu.platform import Platform, preset_for
@@ -42,7 +45,10 @@ def plane_inputs(index, names, seqs, *, NB, B, L):
     return codes, lengths, dual, selfr
 
 
-def run_both(index, names, seqs, *, NB, B, L, A, W):
+def run_both(index, names, seqs, *, NB, B, L, A, W, **mode):
+    """The port's and the reference's planes; with ``mode`` (pair and
+    ``-F`` arguments) also their pair planes: ``(got, want)`` pairs of
+    ``(plane, pairs)``."""
     p = index.params
     n_uniq = len(np.unique(index.keys))
     bb = min(max(int(np.ceil(np.log2(n_uniq))) + 2, 12), 26)
@@ -50,7 +56,7 @@ def run_both(index, names, seqs, *, NB, B, L, A, W):
     gi = port.GroupedDeviceIndex.from_host(index, torch.device("cpu"), bucket_bits=bb)
     codes, lengths, dual, selfr = plane_inputs(index, names, seqs, NB=NB, B=B, L=L)
     packed_codes = ref.pack2bit_host(codes)
-    want, _ = ref.sketch_map_many(
+    want = ref.sketch_map_many(
         jnp.asarray(packed_codes), jnp.asarray(lengths), jnp.asarray(dual), jnp.asarray(selfr),
         jg.uhash, jg.uoff, jg.boff, jg.loocc[0] if jg.packed_dict_bits else jg.lo[0], jg.hi[0],
         jg.rps if jg.packed_rid_bits else jg.rid, jg.pos, jg.rank, jnp.int32(jg.mid_occ),
@@ -58,15 +64,17 @@ def run_both(index, names, seqs, *, NB, B, L, A, W):
         bucket_kmax=jg.bucket_kmax, q_occ_frac=p.q_occ_frac, max_gap=p.max_gap, bw=p.bw,
         min_score=p.min_chain_score, num_anchors=A, window=W, no_dual=p.no_dual,
         no_diag=p.no_diag, max_chain_skip=p.max_chain_skip, packed_pos=True, min_cnt=p.min_cnt,
-        want_pairs=False, packed_rid_bits=jg.packed_rid_bits,
-        packed_dict_bits=jg.packed_dict_bits, sort_rows=False, flatten=True,
-        cuckoo_bits=jg.cuckoo_bits, packed_codes=True,
+        packed_rid_bits=jg.packed_rid_bits, packed_dict_bits=jg.packed_dict_bits, sort_rows=False,
+        flatten=True, cuckoo_bits=jg.cuckoo_bits, packed_codes=True, idx_tlen=jg.tlen, **mode,
     )
     t = torch.from_numpy
     got = port.sketch_map_many(
-        t(packed_codes), t(lengths), t(dual), t(selfr), gi, p, num_anchors=A, window=W
+        t(packed_codes), t(lengths), t(dual), t(selfr), gi, p, num_anchors=A, window=W, **mode
     )
-    return got.numpy(), np.asarray(want)
+    if mode:
+        return (got[0].numpy(), got[1].numpy()), (np.asarray(want[0]), np.asarray(want[1]))
+    assert got[1] is None
+    return got[0].numpy(), np.asarray(want[0])
 
 
 @pytest.fixture(scope="module")
@@ -112,3 +120,21 @@ def test_dense_runs_flag_window_misses():
     got, want = run_both(index, qnames, queries, NB=1, B=8, L=2048, A=2048, W=16)
     np.testing.assert_array_equal(got, want)
     assert (got[..., 2] > 16).any(), "corpus must produce window-miss rows"
+
+
+@pytest.mark.parametrize("filter_mode", ["internal", "overhang"])
+def test_pairs_and_extent_filter_match_jax(tmp_path, filter_mode):
+    # short reads contained in long ones: internal and overhang-heavy
+    # mappings on both sides of the filter
+    reads = list(iter_records(_contained_corpus(tmp_path)))
+    names, seqs = [n for n, _ in reads], [s for _, s in reads]
+    index = build_index(seqs[:80], names[:80], preset_for(Platform.NANOPORE, dual=True))
+    mode = dict(want_pairs=True, want_extents=True, overhang_ratio=0.2, filter_mode=filter_mode)
+    (plane, pairs), (want_plane, want_pairs) = run_both(
+        index, names[80:], seqs[80:], NB=1, B=40, L=2816, A=2816, W=32, **mode
+    )
+    np.testing.assert_array_equal(plane, want_plane)
+    np.testing.assert_array_equal(pairs, want_pairs)
+    counts = plane[..., 0] & 0xFFFFFF
+    assert ((plane[..., 0] >> 24) > counts).any(), "the filter must drop some rows' targets"
+    assert ((pairs >= 0).sum(axis=-1) == counts).all()

@@ -235,20 +235,28 @@ def run_cli(ck, tag, args, out, gpu_line, *, needle="", ext=False, host_equal=Fa
     return launches, ext_launches
 
 
-def timed_pass(engine, names, seqs, pairs=False, **kw):
+def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     """One warm ``count_batch`` pass, timed, with fresh fallback tallies;
-    returns ``(result, pair dict or None, report)``."""
+    a ``-F`` pass (``filter_ratio`` set) must launch the extent variant
+    (its count set to 0 just before the pass, read just after).  Returns
+    ``(result, pair dict or None, report)``."""
+    from lrge_tpu_torch.ops import chain_kernel as ck
+
     engine.fallback_triggers.clear()
     collected = {} if pairs else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    ck.chain_dp_skip.ext_launches = 0
     t0 = time.perf_counter()
     res = engine.count_batch(names, seqs, collect_pairs=collected, **kw)
     t = time.perf_counter() - t0
+    ext_launches = ck.chain_dp_skip.ext_launches
+    if kw.get("filter_ratio") is not None and ext_launches <= 0:
+        fail(f"[{tag}] the -F pass never launched the extent variant of the chain kernel")
     peak = torch.cuda.max_memory_allocated()
     report = (f"{len(seqs) / t:.1f} q/s ({t:.3f} s for {len(seqs)} rows), fallback_rows "
               f"{res.fallback_rows}, fallback_triggers {dict(engine.fallback_triggers)}, peak device "
-              f"memory {peak / 2**20:.1f} MiB")
+              f"memory {peak / 2**20:.1f} MiB, extent-variant launches {ext_launches}")
     return res, collected, report
 
 
@@ -300,7 +308,7 @@ def twoset_paths(ck, dev, gpu_line):
         names = [n for n, _ in queries]
         seqs = [s for _, s in queries]
         engine.warmup([len(s) for s in seqs])
-        res, _, report = timed_pass(engine, names, seqs)
+        res, _, report = timed_pass("main", engine, names, seqs)
         check_sample("main", engine, names, seqs, res, None)
         print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
 
@@ -310,7 +318,7 @@ def twoset_paths(ck, dev, gpu_line):
             host_equal=True,
         )
         engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
-        res, _, report = timed_pass(engine, names, seqs, filter_ratio=0.2)
+        res, _, report = timed_pass("filter", engine, names, seqs, filter_ratio=0.2)
         check_sample("filter", engine, names, seqs, res, None, filter_ratio=0.2)
         print(f"[filter] engine: {report} ({gpu_line})", flush=True)
 
@@ -322,12 +330,12 @@ def twoset_paths(ck, dev, gpu_line):
         tnames = [n for n, _ in targets]
         tseqs = [s for _, s in targets]
         inv.warmup([len(s) for s in tseqs], want_pairs=True)
-        res, pairs, report = timed_pass(inv, tnames, tseqs, pairs=True)
+        res, pairs, report = timed_pass("inverse", inv, tnames, tseqs, pairs=True)
         check_sample("inverse", inv, tnames, tseqs, res, pairs)
         print(f"[inverse] engine: {report} ({gpu_line})", flush=True)
         mode = dict(filter_ratio=0.2, filter_mode="overhang")
         inv.warmup([len(s) for s in tseqs], want_pairs=True, **mode)
-        res, pairs, report = timed_pass(inv, tnames, tseqs, pairs=True, **mode)
+        res, pairs, report = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
         check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
         print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
         return launches, ext_launches
@@ -336,10 +344,8 @@ def twoset_paths(ck, dev, gpu_line):
 def ava_path(ck, dev, gpu_line):
     """Phase 7: ``-n 25000`` on 26,000 reads of the same genome, then the
     all-vs-all engine alone (pairs, and pairs under ``-F``)."""
-    from lrge_tpu.platform import preset_for
     from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.strategy import AvaStrategy
-    from lrge_tpu_torch.strategy.twoset import build_index_no_fork
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         tmp = Path(tmp)
@@ -350,15 +356,14 @@ def ava_path(ck, dev, gpu_line):
         reads, _ = strat.subsample_reads()
         names = [n for n, _ in reads]
         seqs = [s for _, s in reads]
-        index = build_index_no_fork(seqs, names, preset_for(strat.platform, dual=False))
-        engine = device_engine.DeviceOverlapEngine(index, device=dev)
+        engine = device_engine.DeviceOverlapEngine(strat._build_engine(reads).index, device=dev)
         lens = [len(s) for s in seqs]
         engine.warmup(lens, want_pairs=True)
-        res, pairs, report = timed_pass(engine, names, seqs, pairs=True)
+        res, pairs, report = timed_pass("ava", engine, names, seqs, pairs=True)
         check_sample("ava", engine, names, seqs, res, pairs)
         print(f"[ava] engine: {report} ({gpu_line})", flush=True)
         engine.warmup(lens, filter_ratio=0.2, want_pairs=True)
-        res, pairs, report = timed_pass(engine, names, seqs, pairs=True, filter_ratio=0.2)
+        res, pairs, report = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
         check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
         print(f"[ava -F] engine: {report} ({gpu_line})", flush=True)
 

@@ -12,8 +12,6 @@ import logging
 import numpy as np
 import torch
 
-from lrge_tpu.engine import OverlapEngine
-from lrge_tpu.errors import DuplicateReadIdentifierError
 from lrge_tpu.estimate import per_read_estimate
 from lrge_tpu.platform import preset_for
 from lrge_tpu.strategy.ava import TRACE
@@ -21,7 +19,7 @@ from lrge_tpu.strategy.ava import AvaBuilder as _RefAvaBuilder
 from lrge_tpu.strategy.ava import AvaStrategy as _RefAvaStrategy
 
 from ..device_engine import DeviceOverlapEngine, default_device, resolve_engine
-from .twoset import _FILTER_ON_HOST, _HostMapper, build_index_no_fork
+from .twoset import _FILTER_ON_HOST, _HostMapper, build_engine_no_fork
 
 logger = logging.getLogger("lrge")
 
@@ -39,14 +37,8 @@ class AvaStrategy(_RefAvaStrategy):
         index over the subsample, each read mapped against it with the
         no-dual mask, symmetric unordered-pair counting."""
         reads, sum_len = self.subsample_reads()
-        params = preset_for(self.platform, dual=False)
-        names = [n for n, _ in reads]
-        read_lengths = {}
-        for n, s in reads:
-            if n in read_lengths:
-                raise DuplicateReadIdentifierError(n.decode("utf-8", "replace"))
-            read_lengths[n] = len(s)
-        engine = OverlapEngine(build_index_no_fork([s for _, s in reads], names, params))
+        engine = self._build_engine(reads)
+        read_lengths = {n: len(s) for n, s in reads}
         if resolve_engine(self.engine, len(reads)) == "device":
             device = self.device if self.device is not None else default_device()
             dev = DeviceOverlapEngine(engine.index, device=device)
@@ -77,7 +69,12 @@ class AvaStrategy(_RefAvaStrategy):
                     ovlap_counter[tname] = ovlap_counter.get(tname, 0) + 1
                     ovlap_counter[qname] = ovlap_counter.get(qname, 0) + 1
         mapper.close()
-        return self._estimates(ovlap_counter, read_lengths, sum_len, params.min_chain_score)
+        return self._estimates(ovlap_counter, read_lengths, sum_len, engine.params.min_chain_score)
+
+    def _build_engine(self, reads):
+        """Index the subsample with the no-dual preset (raises on a
+        duplicate name)."""
+        return build_engine_no_fork(reads, preset_for(self.platform, dual=False))
 
     def _count_device(self, engine, reads, sum_len, read_lengths, dev=None, filter_ratio=None):
         """Device counting with symmetric pair accumulation: the no-dual

@@ -34,15 +34,23 @@ _FILTER_ON_HOST = (
 )
 
 
-def build_index_no_fork(seqs, names, params):
-    """``build_index`` that forks no sketch workers once this process
-    holds a CUDA context (a forked child inherits it unusable; the
-    reference's guard only knows JAX): without the native sketcher it
-    then sketches serially.  The index is the same either way."""
+def build_engine_no_fork(reads, params) -> OverlapEngine:
+    """The reference strategies' index build over ``(name, seq)`` reads:
+    raises on a duplicate name, then indexes the reads.  It forks no
+    sketch workers once this process holds a CUDA context (a forked
+    child inherits it unusable; the reference's guard only knows JAX):
+    without the native sketcher it then sketches serially.  The index
+    is the same either way."""
     from lrge_tpu.native import native
 
+    names = [n for n, _ in reads]
+    seen = set()
+    for n in names:
+        if n in seen:
+            raise DuplicateReadIdentifierError(n.decode("utf-8", "replace"))
+        seen.add(n)
     threads = 1 if native is None and torch.cuda.is_initialized() else 8
-    return build_index(seqs, names, params, threads=threads)
+    return OverlapEngine(build_index([s for _, s in reads], names, params, threads=threads))
 
 
 class _HostMapper(ParallelHostMapper):
@@ -70,14 +78,7 @@ class TwoSetStrategy(_RefTwoSetStrategy):
         self.device = device
 
     def _build_engine(self, reads):
-        params = preset_for(self.platform, dual=True)
-        names = [n for n, _ in reads]
-        seen = set()
-        for n in names:
-            if n in seen:
-                raise DuplicateReadIdentifierError(n.decode("utf-8", "replace"))
-            seen.add(n)
-        return OverlapEngine(build_index_no_fork([s for _, s in reads], names, params))
+        return build_engine_no_fork(reads, preset_for(self.platform, dual=True))
 
     def _device_engine(self, index) -> DeviceOverlapEngine:
         device = self.device if self.device is not None else default_device()

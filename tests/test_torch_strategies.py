@@ -18,6 +18,7 @@ torch.set_num_threads(1)
 from test_device_engine import _contained_corpus
 
 from lrge_tpu import cli as ref_cli
+from lrge_tpu.errors import DuplicateReadIdentifierError
 from lrge_tpu.ops import index as index_mod
 from lrge_tpu.ops.index import build_index
 from lrge_tpu.platform import Platform, preset_for
@@ -26,7 +27,7 @@ from lrge_tpu.strategy.twoset import TwoSetStrategy as RefTwoSet
 from lrge_tpu_torch import cli, device_engine
 from lrge_tpu_torch.ops import overlap
 from lrge_tpu_torch.strategy import AvaStrategy, TwoSetStrategy
-from lrge_tpu_torch.strategy.twoset import build_index_no_fork
+from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
 
 CPU = torch.device("cpu")
 
@@ -124,6 +125,7 @@ def test_index_build_never_forks_after_cuda(monkeypatch):
     names = [b"f%d" % i for i in range(len(seqs))]
     params = preset_for(Platform.NANOPORE, dual=True)
     want = build_index(seqs, names, params)
+    want_ava = build_index(seqs, names, preset_for(Platform.NANOPORE, dual=False))
 
     def forked(*args, **kw):
         raise AssertionError("forked sketch workers after CUDA started")
@@ -133,9 +135,20 @@ def test_index_build_never_forks_after_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(lrge_tpu.native, "native", None)
     monkeypatch.setattr(index_mod, "_sketch_reads_parallel", forked)
-    got = build_index_no_fork(seqs, names, params)
+    reads = list(zip(names, seqs))
+    got = build_engine_no_fork(reads, params).index
     for field in ("keys", "rid", "pos", "strand", "lengths", "name_rank"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
     assert got.mid_occ == want.mid_occ
-    engine = TwoSetStrategy("unused.fq")._build_engine(list(zip(names, seqs)))
+    engine = TwoSetStrategy("unused.fq")._build_engine(reads)
     np.testing.assert_array_equal(engine.index.keys, want.keys)
+    ava = AvaStrategy("unused.fq")._build_engine(reads).index
+    np.testing.assert_array_equal(ava.keys, want_ava.keys)
+    np.testing.assert_array_equal(ava.rid, want_ava.rid)
+
+
+@pytest.mark.parametrize("strategy", [TwoSetStrategy, AvaStrategy])
+def test_build_engine_rejects_duplicate_names(strategy):
+    reads = [(b"a", b"ACGT" * 40), (b"b", b"TTGCA" * 30), (b"a", b"GGCAT" * 30)]
+    with pytest.raises(DuplicateReadIdentifierError, match="a"):
+        strategy("unused.fq")._build_engine(reads)

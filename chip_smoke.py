@@ -6,12 +6,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the chain DP kernel (both variants) from
-   ``lrge_tpu_torch/csrc/chain_dp.cu``;
+   ``lrge_tpu_torch/csrc/chain_dp.cu`` and print each instance's
+   registers, stack and spill (``-Xptxas -v``);
 3. each variant against its plain PyTorch version on the card, at the
-   main path's shapes ([512, 4096] and [1024, 2048] anchors, W = 32)
-   and on a colinear skip-break corpus (W = 64): ``f`` and ``broke``,
-   and for the extent variant also ``cnt``, ``start`` and ``rmf``, must
-   be bit-equal (tolerance 0, integer outputs);
+   main path's shapes ([512, 4096] and [1024, 2048] anchors, W = 32),
+   on a colinear skip-break corpus (W = 64) and, once phase 4 has built
+   its index, on the main path's own anchors (one phase-4 super-batch
+   through the port's sketch, lookup, expansion and sort): ``f`` and
+   ``broke``, and for the extent variant also ``cnt``, ``start`` and
+   ``rmf``, must be bit-equal (tolerance 0, integer outputs).  Each case
+   prints its run-length distribution, the kernel's time alone and with
+   its work list, the plain version's time and the bound; one run of
+   4,096 anchors alone gives the per-anchor step latency;
 4. the main path: ``lrge_tpu_torch.cli.main`` on a synthetic 4.4 Mbp
    genome (15,000 reads, mean 2.5 kb, 5% errors, seed 6) at the
    published run shape ``-T 10000 -Q 5000``, with ``--engine auto``,
@@ -59,6 +65,14 @@ SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # ONT preset chn_pen_gap
 IMAX = np.iinfo(np.int32).max
+# the chain DP's bound: integer/f32 operations per (anchor, in-run
+# predecessor) pair, counted from the loop body of csrc/chain_dp.cu:
+# deltas 5, the ok test 12, the score 25 (mg_log2 11), the marked vote 8,
+# running max, improving and the skip step 11, the skip counter and cut
+# 9, the best score and its position 5
+OPS_PER_CANDIDATE = 75
+PEAK_OPS = 67e12  # H100 SXM, float32 outside the tensor cores (op/s)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (B/s)
 
 
 def fail(msg: str):
@@ -66,14 +80,15 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def anchor_rows(rng, B, A, *, colinear=False, n_rids=40):
-    """Rows of anchors sorted by (rid*2+strand, rpos), valid prefix per row."""
+def anchor_rows(rng, B, A, *, colinear=False, n_rids=40, n_min=None):
+    """Rows of anchors sorted by (rid*2+strand, rpos), valid prefix per
+    row of ``n_min`` (default ``A // 4``) to ``A - 1`` anchors."""
     key2 = np.full((B, A), IMAX, np.int32)
     rpos = np.zeros((B, A), np.int32)
     qpos = np.zeros((B, A), np.int32)
     valid = np.zeros((B, A), np.int32)
     for b in range(B):
-        n = int(rng.integers(A // 4, A))
+        n = int(rng.integers(A // 4 if n_min is None else n_min, A))
         if colinear:
             base = np.arange(n) * 3
             rp = base + rng.integers(0, 40, n)
@@ -91,50 +106,118 @@ def anchor_rows(rng, B, A, *, colinear=False, n_rids=40):
     return key2, rpos, qpos, valid
 
 
+def chain_bound(lens, B, A, W, extents):
+    """Least time (ms) the card could take for the chain DP on these
+    inputs, and what binds it: operations (each anchor against its
+    min(depth, W) in-run predecessors) at ``PEAK_OPS``, or bytes (four
+    input planes over the valid anchors and ``nvalid`` read once, two or
+    five [B, A] output planes written once) at ``PEAK_BYTES``."""
+    n = lens.astype(np.int64)
+    cand = np.where(n <= W + 1, n * (n - 1) // 2, W * (W + 1) // 2 + (n - 1 - W) * W).sum()
+    t_ops = OPS_PER_CANDIDATE * cand / PEAK_OPS * 1e3
+    t_bytes = (16 * n.sum() + 4 * B + 4 * (5 if extents else 2) * B * A) / PEAK_BYTES * 1e3
+    return (float(t_ops), "operations") if t_ops >= t_bytes else (float(t_bytes), "bytes")
+
+
+def cuda_ms(fn, reps=20):
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events, after
+    three warm-up calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_case(ck, tag, name, arrs, W, kw):
+    """One phase-3 case: the kernel against its plain version on the
+    same [B, A] inputs, bit for bit, with times, the run-length
+    distribution and the bound.  Returns the case's record."""
+    key2, rpos, qpos, valid = arrs
+    B, A = key2.shape
+    nvalid = valid.sum(dim=1).to(torch.int32)
+    args = (key2, rpos, qpos, valid, nvalid, PEN_GAP)
+    w_ms = cuda_ms(lambda: ck.chain_dp_skip(*args, window=W, **kw))
+    work = ck.run_worklist(key2, nvalid)
+    k_ms = cuda_ms(lambda: ck.launch_runs(work, *args[1:], window=W, **kw))
+    got = ck.chain_dp_skip(*args, window=W, **kw)
+    t0 = time.perf_counter()
+    want = ck.chain_dp_skip_plain(*args, window=W, **kw)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    lens = work[1].cpu().numpy()
+    lens = lens[lens > 0]  # one entry per run
+    bound_ms, bound_by = chain_bound(lens, B, A, W, kw["extents"])
+    extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if kw["extents"] else ""
+    print(f"[{tag}] {name} [{B}, {A}] W={W}: runs {len(lens)} ({len(lens) / B:.1f} a row), run length "
+          f"max {lens.max()} p99 {np.percentile(lens, 99):.0f} median {np.median(lens):.0f}; kernel "
+          f"{k_ms:.4f} ms, with work list {w_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); max_abs_err {err}, broke anchors {int(want[1].sum())}{extra}", flush=True)
+    if err:
+        fail(f"chain kernel ({tag}) != plain version on {name}")
+    return dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, max_run=int(lens.max()), broke=int(want[1].sum()))
+
+
 def kernel_vs_plain(ck, dev, extents=False):
-    """Phase 3: bit-equality and times of one variant; returns the
-    main-shape record."""
+    """Phase 3's synthetic cases for one variant, and the per-anchor step
+    latency (one run of 4,096 anchors alone, W = 32); returns
+    ``{case: record}``."""
     # the break needs more than max_skip marked predecessors in view, so
     # the colinear corpus runs at W = 64
     cases = [("main_4096", 512, 4096, 32, False), ("main_2048", 1024, 2048, 32, False),
              ("colinear", 256, 1024, 64, True)]
     tag = "kernel ext" if extents else "kernel"
     kw = dict(KW, extents=extents)
-    rec = {}
-    max_err = 0
+    recs = {}
     for name, B, A, W, colinear in cases:
         rng = np.random.default_rng(SEED + B)
         arrs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A, colinear=colinear)]
-        nvalid = arrs[3].sum(dim=1).to(torch.int32)
-        for _ in range(3):  # warm-up
-            got = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **kw)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        reps = 20
-        start.record()
-        for _ in range(reps):
-            got = ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=W, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        k_ms = start.elapsed_time(end) / reps
-        t0 = time.perf_counter()
-        want = ck.chain_dp_skip_plain(*arrs, nvalid, PEN_GAP, window=W, **kw)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-        n_broke = int(want[1].sum())
-        extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if extents else ""
-        print(f"[{tag}] {name} [{B}, {A}] W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
-              f"max_abs_err {err}, broke rows {n_broke}{extra}", flush=True)
-        if err:
-            fail(f"chain kernel ({tag}) != plain version on {name}")
-        if colinear and not n_broke:
+        recs[name] = kernel_case(ck, tag, name, arrs, W, kw)
+        if colinear and not recs[name]["broke"]:
             fail("the colinear corpus must fire the skip break")
-        max_err = max(max_err, err)
-        rec.setdefault("ms", k_ms)
-        rec.setdefault("plain_ms", p_ms)
-    rec["max_abs_err"] = max_err
-    return rec
+    rng = np.random.default_rng(SEED)
+    arrs = [torch.from_numpy(a[:1]).to(dev) for a in anchor_rows(rng, 1, 4097, colinear=True, n_min=4096)]
+    nvalid = arrs[3].sum(dim=1).to(torch.int32)
+    step_ms = cuda_ms(lambda: ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=32, **kw))
+    recs["step_us"] = step_ms * 1e3 / int(nvalid[0])
+    print(f"[{tag}] one run of {int(nvalid[0])} anchors alone, W=32: {step_ms:.4f} ms, "
+          f"{recs['step_us']:.4f} us an anchor", flush=True)
+    return recs
+
+
+def main_path_case(ck, engine, names, seqs, recs, extents=False):
+    """Phase 3's fourth case: the chain DP's inputs of one phase-4 super-
+    batch (the first of the bucket with most rows) as the main path
+    builds them, through both variants; adds ``"main_path"`` to
+    ``recs`` and prints the critical-path floor (longest run x the step
+    latency)."""
+    from lrge_tpu_torch.ops.overlap import pack2bit_host, sketch_anchors
+
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
+    dual, selfr = engine.query_ranks(names)
+    _, A, codes, lengths, _, dual_b, selfr_b = next(engine.super_batches(L, bucket_rows[L], seqs, dual, selfr))
+    put = lambda a: torch.from_numpy(a).to(engine.device)
+    key2, rpos, qpos, valid = sketch_anchors(
+        put(pack2bit_host(codes)), put(lengths), put(dual_b), put(selfr_b), engine.gdev,
+        engine.params, num_anchors=A,
+    )
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    tag = "kernel ext" if extents else "kernel"
+    p = engine.params
+    kw = dict(span=p.k, max_gap=p.max_gap, bw=p.bw, max_skip=p.max_chain_skip, extents=extents)
+    rec = kernel_case(ck, tag, f"main_path (bucket L={L})", [i32(x) for x in (key2, rpos, qpos, valid)],
+                      engine.window, kw)
+    print(f"[{tag}] main_path critical-path floor: longest run {rec['max_run']} x "
+          f"{recs['step_us']:.4f} us = {rec['max_run'] * recs['step_us'] / 1e3:.4f} ms", flush=True)
+    recs["main_path"] = rec
 
 
 def make_reads(rng, genome, n, mean_len, err):
@@ -282,9 +365,11 @@ def check_sample(tag, engine, names, seqs, res, pairs, filter_ratio=None, filter
     print(f"[{tag}] {SAMPLE} sampled rows equal the host engine's", flush=True)
 
 
-def twoset_paths(ck, dev, gpu_line):
-    """Phases 4-6 on the 15,000-read corpus at ``-T 10000 -Q 5000``;
-    returns the main path's and the ``-F`` path's launch counts."""
+def twoset_paths(ck, dev, gpu_line, recs, recs_ext):
+    """Phases 4-6 on the 15,000-read corpus at ``-T 10000 -Q 5000``, with
+    phase 3's main-path case of both variants (into ``recs`` and
+    ``recs_ext``) once the index is built; returns the main path's and
+    the ``-F`` path's launch counts."""
     from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
@@ -307,6 +392,8 @@ def twoset_paths(ck, dev, gpu_line):
             fail("index planes are not on the card")
         names = [n for n, _ in queries]
         seqs = [s for _, s in queries]
+        main_path_case(ck, engine, names, seqs, recs)
+        main_path_case(ck, engine, names, seqs, recs_ext, extents=True)
         engine.warmup([len(s) for s in seqs])
         res, _, report = timed_pass("main", engine, names, seqs)
         check_sample("main", engine, names, seqs, res, None)
@@ -383,31 +470,29 @@ def main() -> int:
     so = ck.build_library()
     ck._lib()
     print(f"[build] {so.name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in ck.ptxas_report(so):
+        print(f"[build] {line}", flush=True)
 
-    rec = kernel_vs_plain(ck, dev)
-    rec_ext = kernel_vs_plain(ck, dev, extents=True)
-    launches, ext_launches = twoset_paths(ck, dev, gpu_line)
+    recs = kernel_vs_plain(ck, dev)
+    recs_ext = kernel_vs_plain(ck, dev, extents=True)
+    launches, ext_launches = twoset_paths(ck, dev, gpu_line, recs, recs_ext)
     ava_path(ck, dev, gpu_line)
-    kernels = [{
-        "name": "chain_dp_skip",
-        "route": "cuda",
-        "source": "lrge_tpu_torch/csrc/chain_dp.cu",
-        "replaces": "lrge_tpu/ops/chain_pallas.py:274",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-    }, {
-        "name": "chain_dp_skip_ext",
-        "route": "cuda",
-        "source": "lrge_tpu_torch/csrc/chain_dp.cu",
-        "replaces": "lrge_tpu/ops/chain_pallas.py:274",
-        "also_replaces": "lrge_tpu/ops/overlap_jax.py:661-788",
-        "launches": ext_launches,
-        "max_abs_err": rec_ext["max_abs_err"],
-        "ms": rec_ext["ms"],
-        "plain_ms": rec_ext["plain_ms"],
-    }]
+
+    def record(name, r, n):
+        # times and bound on the main path's own anchors; the largest
+        # error over every phase-3 case
+        m = r["main_path"]
+        return {
+            "name": name, "route": "cuda", "source": "lrge_tpu_torch/csrc/chain_dp.cu",
+            "replaces": "lrge_tpu/ops/chain_pallas.py:274", "launches": n,
+            "max_abs_err": max(c["max_abs_err"] for k, c in r.items() if k != "step_us"),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None, "wrapper_ms": m["wrapper_ms"],
+        }
+
+    kernels = [record("chain_dp_skip", recs, launches),
+               dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
+                    also_replaces="lrge_tpu/ops/overlap_jax.py:661-788")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

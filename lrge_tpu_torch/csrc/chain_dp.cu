@@ -1,4 +1,4 @@
-// Chain DP with minimap2's max_chain_skip break, one warp per row.
+// Chain DP with minimap2's max_chain_skip break, one warp per (rid, strand) run.
 //
 // Replaces the Pallas TPU kernel lrge_tpu/ops/chain_pallas.py::chain_dp_skip
 // (body _chain_kernel).  Semantics: see lrge_tpu_torch/ops/chain_kernel.py,
@@ -10,12 +10,25 @@
 // qpos of the chain's first anchor) and rmf (running max f << 1 | valley
 // bit).  Each anchor takes them from its chosen predecessor: the position
 // bd is warp-uniform after the reduce, so every lane selects slot bd % S
-// and one __shfl_sync per ring reads lane bd / S.  That is three more
-// dependent shuffles per anchor (plus three ring pushes), and three more
-// S-deep register rings, which raise register pressure most at W = 128.
-// EXT = false compiles the same code as before the variant existed.
+// and one __shfl_sync per ring reads lane bd / S.
 //
-// Layout: a row's predecessor ring (W newest anchors, position d = 0 is
+// Why runs are independent.  A row is sorted by (key2, rpos), key2 =
+// rid * 2 + strand, so each key2 value is one contiguous run of slots.  A
+// predecessor counts only when it is `ok`, and `ok` needs ring_key == ck
+// (chain_pallas.py:149; chain_dp.cu before the run walk had the same
+// test).  The marked set
+// (chain_pallas.py:164) takes votes from ok positions only, and
+// `improving` needs ok, so the skip counter moves only on positions of the
+// anchor's own run; the best score and its position do too.  An anchor's
+// f, broke, cnt, start and rmf therefore depend only on the earlier
+// anchors of its own run, and the walk of a run may start from an empty
+// ring (rok = false, rp = -1), which is what the row walk holds at a run
+// boundary once the previous run's entries fail `ok`.  Slot indices stay
+// absolute (p_t = i - 1 - bd), so the marked set's i - 1 - rp means what
+// it means in the row walk.  Every ring entry of a run holds the run's
+// key, so the walk keeps no key ring and drops the key compare.
+//
+// Layout: a run's predecessor ring (W newest anchors, position d = 0 is
 // the newest) lives in the registers of one warp; lane l holds the S =
 // max(1, W/32) consecutive positions d = l*S + s.  For W = 16 the upper
 // lanes hold positions >= W, which never count as predecessors.  Per
@@ -27,12 +40,24 @@
 // ring shifts by one position (__shfl_up_sync carries the last slot of
 // each lane to the next lane) and lane 0 takes the new anchor.
 //
-// Bound: latency of the ~30 dependent shuffle rounds per anchor; the
-// bytes per row are tiny.  Anchors are loaded 32 at a time (one per
-// lane, coalesced) and broadcast with one shuffle per step; results are
-// staged in the lane that owns the slot and stored 32 at a time.  Each
-// row walks only its own valid-anchor count and fills the rest with
-// (NEG, 0).
+// What bounds it.  The bytes are tiny (four int32 inputs and two or five
+// outputs per anchor) and the arithmetic is ~75 integer/f32 operations
+// per (anchor, in-run predecessor) pair, so the roofline bound is a few
+// hundredths of a millisecond at the main shapes.  What the card waits on
+// is the chain of ~25 dependent shuffle rounds per anchor: a warp's walk
+// lasts (its anchors) x (one step's latency).  The row-per-warp design
+// this replaces ran 512-1,024 warps, each as long as its row.  Here the
+// wrapper builds a work list of runs sorted longest first (one entry per
+// slot, the slots that start no run after the last run, so no host sync
+// sizes it), and a persistent grid of warps, sized to the card's resident
+// warps, takes runs from it: the first wave spread over the blocks, then
+// through an atomic counter.  The longest runs start at once and the
+// short ones fill in behind them, so a launch lasts about max(longest
+// run x step latency, all anchors x step / resident warps).  On an H100
+// the step of one run walked alone is ~0.6 us at W = 32; with the card
+// full, warps share their SM's issue slots and each step takes longer.
+// After the work list is spent, each warp writes (NEG, 0) (and 0 for the
+// EXT planes) into the slots past the valid counts of its share of rows.
 //
 // Float rounding follows the reference op for op (no FMA contraction:
 // explicit _rn intrinsics, and the build passes -fmad=false).
@@ -44,7 +69,16 @@ namespace {
 constexpr int NEG = -1073741824;  // INT32_MIN / 2
 constexpr int IMAX = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int WARPS_PER_BLOCK = 8;
+
+// resident blocks per SM asked of ptxas: W <= 32 fits 64 warps an SM in
+// its registers (32 a thread, with a few bytes of spill; 6 blocks, 37-40
+// registers and no spill, ran no faster on an H100), the deeper rings
+// take fewer warps
+template <int W>
+struct MinBlocks {
+  static constexpr int value = W <= 32 ? 8 : (W == 64 ? 4 : 2);
+};
 
 __device__ __forceinline__ float mg_log2(float x) {
   unsigned bits = __float_as_uint(x);
@@ -77,45 +111,54 @@ struct AddOp {
   __device__ int operator()(int a, int b) const { return a + b; }
 };
 
+struct Args {
+  const int* rpos;
+  const int* qpos;
+  const int* valid;
+  const int* nvalid;
+  const long long* order;  // [B * A]: flat slots, run starts longest first
+  const int* length;       // [B, A]: run length at each run's start, else 0
+  int* next;               // work counter, 0 at launch
+  int B, A;
+  float pen_gap;
+  int span, max_gap, bw, max_skip;
+  int* f_out;
+  int* broke_out;
+  int* cnt_out;
+  int* start_out;
+  int* rmf_out;
+};
+
+// Walk one run: slots [st, st + len) of row `row`, ring empty at its start.
 template <int W, bool EXT>
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
-chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
-                const int* __restrict__ qpos, const int* __restrict__ valid,
-                const int* __restrict__ nvalid, int B, int A, float pen_gap,
-                int span, int max_gap, int bw, int max_skip,
-                int* __restrict__ f_out, int* __restrict__ broke_out,
-                int* __restrict__ cnt_out, int* __restrict__ start_out,
-                int* __restrict__ rmf_out) {
+__device__ __forceinline__ void walk_run(const Args a, int row, int st, int len, int lane) {
   constexpr int S = W >= 32 ? W / 32 : 1;
   constexpr int P = W >= 32 ? W / 32 : 1;  // vote planes
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= B) return;  // whole warp leaves together
-  const size_t off = static_cast<size_t>(row) * A;
-  int n = nvalid[row];
-  n = n < 0 ? 0 : (n > A ? A : n);
+  const size_t off = static_cast<size_t>(row) * a.A;
+  const int end = st + len;
+  const float pen_gap = a.pen_gap;
+  const int span = a.span, max_gap = a.max_gap, bw = a.bw, max_skip = a.max_skip;
 
-  int rk[S], rr[S], rq[S], rf[S], rp[S];
+  int rr[S], rq[S], rf[S], rp[S];
   bool rok[S];
   // extent rings (EXT only): chain count, packed chain start, rmf
   int rc[EXT ? S : 1], rs[EXT ? S : 1], rm[EXT ? S : 1];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    rk[s] = IMAX; rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
+    rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
     if constexpr (EXT) { rc[s] = 0; rs[s] = 0; rm[s] = 0; }
   }
 
-  for (int base = 0; base < n; base += 32) {
+  for (int base = st; base < end; base += 32) {
     const int idx = base + lane;
-    int lk = IMAX, lr = 0, lq = 0, lv = 0;
-    if (idx < n) {
-      lk = key2[off + idx]; lr = rpos[off + idx]; lq = qpos[off + idx]; lv = valid[off + idx];
+    int lr = 0, lq = 0, lv = 0;
+    if (idx < end) {
+      lr = a.rpos[off + idx]; lq = a.qpos[off + idx]; lv = a.valid[off + idx];
     }
     int my_f = NEG, my_b = 0, my_c = 0, my_s = 0, my_r = 0;
-    const int m = min(32, n - base);
+    const int m = min(32, end - base);
     for (int j = 0; j < m; ++j) {
-      const int i = base + j;
-      const int ck = __shfl_sync(FULL, lk, j);
+      const int i = base + j;  // absolute slot
       const int cr = __shfl_sync(FULL, lr, j);
       const int cq = __shfl_sync(FULL, lq, j);
       const bool cv = __shfl_sync(FULL, lv, j) != 0;
@@ -130,7 +173,7 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
         const int dr = cr - rr[s];
         const int dd = abs(dr - dq);
         const int dg = min(dq, dr);
-        const bool ok = d < W && rok[s] && rk[s] == ck && dq > 0 && dq <= max_gap &&
+        const bool ok = d < W && rok[s] && dq > 0 && dq <= max_gap &&
                         dr > 0 && dr <= max_gap && dd <= bw;
         int c = NEG;
         if (ok) {
@@ -165,21 +208,21 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
 #pragma unroll
       for (int s = 1; s < S; ++s) loc[s] = max(loc[s - 1], cand[s]);
       const int cx = warp_excl_scan(loc[S - 1], NEG, lane, MaxOp());
-      int a[S];
+      int av[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int d = lane * S + s;
         const int prev = s == 0 ? cx : max(cx, loc[s - 1]);
         const bool improving = okv[s] && cand[s] > max(prev, span);
         const bool marked = (votes[(d >> 5) % P] >> (d & 31)) & 1u;
-        a[s] = (okv[s] && marked && !improving) - (improving ? 1 : 0);
+        av[s] = (okv[s] && marked && !improving) - (improving ? 1 : 0);
       }
 
       // Lindley skip counter: n_skip = S_t - min(0, min_{u<=t} S_u)
       int sc_[S];
-      sc_[0] = a[0];
+      sc_[0] = av[0];
 #pragma unroll
-      for (int s = 1; s < S; ++s) sc_[s] = sc_[s - 1] + a[s];
+      for (int s = 1; s < S; ++s) sc_[s] = sc_[s - 1] + av[s];
       const int sx = warp_excl_scan(sc_[S - 1], 0, lane, AddOp());
 #pragma unroll
       for (int s = 0; s < S; ++s) sc_[s] += sx;
@@ -251,7 +294,6 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
     _Pragma("unroll") for (int s = S - 1; s > 0; --s) R[s] = R[s - 1]; \
     R[0] = lane == 0 ? (NEWV) : carry;                      \
   }
-      LRGE_PUSH(rk, ck)
       LRGE_PUSH(rr, cr)
       LRGE_PUSH(rq, cq)
       LRGE_PUSH(rf, f_t)
@@ -264,67 +306,124 @@ chain_dp_kernel(const int* __restrict__ key2, const int* __restrict__ rpos,
       }
 #undef LRGE_PUSH
     }
-    if (idx < A) {
-      f_out[off + idx] = my_f;
-      broke_out[off + idx] = my_b;
+    if (idx < end) {
+      a.f_out[off + idx] = my_f;
+      a.broke_out[off + idx] = my_b;
       if constexpr (EXT) {
-        cnt_out[off + idx] = my_c;
-        start_out[off + idx] = my_s;
-        rmf_out[off + idx] = my_r;
+        a.cnt_out[off + idx] = my_c;
+        a.start_out[off + idx] = my_s;
+        a.rmf_out[off + idx] = my_r;
       }
-    }
-  }
-  for (int idx = ((n + 31) / 32) * 32 + lane; idx < A; idx += 32) {
-    f_out[off + idx] = NEG;
-    broke_out[off + idx] = 0;
-    if constexpr (EXT) {
-      cnt_out[off + idx] = 0;
-      start_out[off + idx] = 0;
-      rmf_out[off + idx] = 0;
     }
   }
 }
 
+template <int W, bool EXT>
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK, MinBlocks<W>::value)
+chain_dp_kernel(const Args a) {
+  const int lane = threadIdx.x & 31;
+  // runs, longest first, until the first entry of length 0.  The first
+  // wave is static and block-major (entry e goes to warp e / gridDim.x
+  // of block e % gridDim.x), so the longest runs spread over the SMs
+  // instead of crowding the first blocks to start; later entries come
+  // from an atomic counter, fetched before the current run is walked so
+  // that the atomic's latency hides behind the walk.
+  const int cap = a.B * a.A;
+  const int total = gridDim.x * WARPS_PER_BLOCK;
+  int e = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  while (e < cap) {
+    const long long flat = a.order[e];
+    const int len = a.length[flat];
+    if (len == 0) break;
+    int nxt = 0;
+    if (lane == 0) nxt = total + atomicAdd(a.next, 1);
+    const int row = static_cast<int>(flat / a.A);
+    walk_run<W, EXT>(a, row, static_cast<int>(flat - static_cast<long long>(row) * a.A), len, lane);
+    e = __shfl_sync(FULL, nxt, 0);
+  }
+  // padding: slots [nvalid, A) of each row, rows strided over the warps
+  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  for (int row = warp; row < a.B; row += gridDim.x * WARPS_PER_BLOCK) {
+    const size_t off = static_cast<size_t>(row) * a.A;
+    int n = a.nvalid[row];
+    n = n < 0 ? 0 : (n > a.A ? a.A : n);
+    for (int idx = n + lane; idx < a.A; idx += 32) {
+      a.f_out[off + idx] = NEG;
+      a.broke_out[off + idx] = 0;
+      if constexpr (EXT) {
+        a.cnt_out[off + idx] = 0;
+        a.start_out[off + idx] = 0;
+        a.rmf_out[off + idx] = 0;
+      }
+    }
+  }
+}
+
+template <int W, bool EXT>
+int launch_w(const Args& a, cudaStream_t st) {
+  constexpr int threads = 32 * WARPS_PER_BLOCK;
+  // the card's resident blocks of this instance (asked once)
+  static int sms = 0, per_sm = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_dp_kernel<W, EXT>, threads, 0);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(err);
+    }
+  }
+  // persistent grid: every resident warp, or one warp per slot when
+  // the rows hold fewer (the run count is not known on the host)
+  const long long want = (static_cast<long long>(a.B) * a.A + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = want < resident ? static_cast<int>(want) : resident;
+  chain_dp_kernel<W, EXT><<<blocks, threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool EXT>
-int launch(const int* key2, const int* rpos, const int* qpos, const int* valid,
-           const int* nvalid, int B, int A, float pen_gap, int span, int max_gap,
-           int bw, int max_skip, int window, int* f, int* broke, int* cnt, int* start,
-           int* rmf, void* stream) {
-  const int blocks = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+int launch(const Args& a, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LRGE_LAUNCH(WIN)                                                              \
-  chain_dp_kernel<WIN, EXT><<<blocks, 32 * WARPS_PER_BLOCK, 0, st>>>(                 \
-      key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw, max_skip, f, \
-      broke, cnt, start, rmf)
   switch (window) {
-    case 16: LRGE_LAUNCH(16); break;
-    case 32: LRGE_LAUNCH(32); break;
-    case 64: LRGE_LAUNCH(64); break;
-    case 128: LRGE_LAUNCH(128); break;
+    case 16: return launch_w<16, EXT>(a, st);
+    case 32: return launch_w<32, EXT>(a, st);
+    case 64: return launch_w<64, EXT>(a, st);
+    case 128: return launch_w<128, EXT>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef LRGE_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both entry points return cudaGetLastError() after the launch (0 on success).
-extern "C" int chain_dp_skip_launch(const int* key2, const int* rpos, const int* qpos,
-                                    const int* valid, const int* nvalid, int B, int A,
-                                    float pen_gap, int span, int max_gap, int bw,
-                                    int max_skip, int window, int* f, int* broke,
-                                    void* stream) {
-  return launch<false>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw,
-                       max_skip, window, f, broke, nullptr, nullptr, nullptr, stream);
+// Both entry points return the first CUDA error of the launch (0 on
+// success).  `order` (int64, B * A flat slots, the run starts longest
+// first) and `length` ([B, A] int32, each run's length at its start
+// slot, 0 elsewhere) are the run list that the wrapper builds from key2
+// and nvalid, and `next` one int32 that is 0 at launch; the kernel
+// itself does not read key2.
+extern "C" int chain_dp_skip_launch(const int* rpos, const int* qpos,
+                                    const int* valid, const int* nvalid,
+                                    const long long* order, const int* length, int* next,
+                                    int B, int A, float pen_gap, int span,
+                                    int max_gap, int bw, int max_skip, int window, int* f,
+                                    int* broke, void* stream) {
+  const Args a{rpos, qpos, valid, nvalid, order, length, next, B, A, pen_gap, span, max_gap,
+               bw, max_skip, f, broke, nullptr, nullptr, nullptr};
+  return launch<false>(a, window, stream);
 }
 
 // The -F variant: also writes cnt, start and rmf ([B, A] int32 each).
-extern "C" int chain_dp_skip_ext_launch(const int* key2, const int* rpos, const int* qpos,
-                                        const int* valid, const int* nvalid, int B, int A,
-                                        float pen_gap, int span, int max_gap, int bw,
-                                        int max_skip, int window, int* f, int* broke,
-                                        int* cnt, int* start, int* rmf, void* stream) {
-  return launch<true>(key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap, bw,
-                      max_skip, window, f, broke, cnt, start, rmf, stream);
+extern "C" int chain_dp_skip_ext_launch(const int* rpos, const int* qpos,
+                                        const int* valid, const int* nvalid,
+                                        const long long* order, const int* length, int* next,
+                                        int B, int A, float pen_gap,
+                                        int span, int max_gap, int bw, int max_skip,
+                                        int window, int* f, int* broke, int* cnt, int* start,
+                                        int* rmf, void* stream) {
+  const Args a{rpos, qpos, valid, nvalid, order, length, next, B, A, pen_gap, span, max_gap,
+               bw, max_skip, f, broke, cnt, start, rmf};
+  return launch<true>(a, window, stream);
 }

@@ -24,11 +24,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lrge_tpu.engine import OverlapEngine
-from lrge_tpu.native import native
-from lrge_tpu.ops.encode import make_batches
-from lrge_tpu.ops.index import TargetIndex
-
+from .engine import OverlapEngine
+from .native import native
+from .ops.encode import make_batches
+from .ops.index import TargetIndex
 from .ops.overlap import HAD_BIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host, sketch_map_many
 
 logger = logging.getLogger("lrge")
@@ -134,14 +133,17 @@ class DeviceOverlapEngine:
         if self.gdev is None:
             self.device_ok = False  # every posting pruned by the occurrence cutoff
 
-    def _self_ranks(self, names) -> np.ndarray:
-        """Query self-ids in name-rank space (the posting planes carry ranks)."""
+    def query_ranks(self, names) -> tuple[np.ndarray, np.ndarray]:
+        """Each query's dual-mask rank (0 without ``no_dual``) and self-id,
+        in name-rank space (the posting planes carry ranks)."""
+        no_dual = self.params.no_dual
+        dual = np.array([self.host._dual_rank(nm) if no_dual else 0 for nm in names], dtype=np.int32)
         rank_of = self.index.name_rank
-        out = np.empty(len(names), dtype=np.int32)
+        selfr = np.empty(len(names), dtype=np.int32)
         for i, nm in enumerate(names):
             r = self.host._name_to_rid.get(nm, -1)
-            out[i] = int(rank_of[r]) if r >= 0 else -1
-        return out
+            selfr[i] = int(rank_of[r]) if r >= 0 else -1
+        return dual, selfr
 
     def _ranks_to_rids(self, ranks: np.ndarray) -> np.ndarray:
         """Device pair planes carry name ranks; the pair contract is rid-based."""
@@ -304,11 +306,9 @@ class DeviceOverlapEngine:
                 )
             lo = L
 
-    def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
-        """Enqueue the super-batches of one length bucket; yields
-        ``(nb, A, codes, lengths, ids, packed_device_plane,
-        pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
-        arguments of :func:`sketch_map_many`."""
+    def super_batches(self, L, rows_b, seqs, qdualrank, qselfrid):
+        """The super-batches of one length bucket, as host arrays; yields
+        ``(nb, A, codes, lengths, ids, dual, selfr)``."""
         B = self.batch_size
         # anchor capacity scales with the padded length (A = L at the
         # default), dispatch depth shrinks to keep group work constant
@@ -318,7 +318,6 @@ class DeviceOverlapEngine:
             [seqs[i] for i in rows_b], ids=rows_b, batch_size=B, pad_to=L,
             pow2_lengths=False, pad_batch=True,
         )
-        p = self.params
         for off in range(0, len(batches), SUP):
             group = batches[off : off + SUP]
             codes = np.full((SUP, B, L), 4, dtype=np.uint8)
@@ -330,12 +329,20 @@ class DeviceOverlapEngine:
                 ids[g] = batch.ids
             dual = np.where(ids >= 0, qdualrank[ids], 0).astype(np.int32)
             selfr = np.where(ids >= 0, qselfrid[ids], -1).astype(np.int32)
-            put = lambda a: torch.from_numpy(a).to(self.device)
+            yield len(group), A, codes, lengths, ids, dual, selfr
+
+    def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
+        """Enqueue the super-batches of one length bucket; yields
+        ``(nb, A, codes, lengths, ids, packed_device_plane,
+        pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
+        arguments of :func:`sketch_map_many`."""
+        put = lambda a: torch.from_numpy(a).to(self.device)
+        for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
             packed, pairs = sketch_map_many(
                 put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
-                self.gdev, p, num_anchors=A, window=self.window, **mode,
+                self.gdev, self.params, num_anchors=A, window=self.window, **mode,
             )
-            yield len(group), A, codes, lengths, ids, packed, pairs
+            yield nb, A, codes, lengths, ids, packed, pairs
 
     def count_batch(
         self, names: list, seqs: list, collect_pairs=None, filter_ratio=None,
@@ -375,7 +382,6 @@ class DeviceOverlapEngine:
             take_host(range(n), host_fn(list(zip(names, seqs))))
             return BatchCounts(counts, had, n)
 
-        p = self.params
         max_bucket = self.length_buckets[-1]
         long_rows, host_share_rows, bucket_rows = self.plan_rows(
             seqs, range(n), pairs_wanted=collect_pairs is not None,
@@ -395,10 +401,7 @@ class DeviceOverlapEngine:
             else None
         )
         try:
-            qdualrank = np.array(
-                [self.host._dual_rank(nm) if p.no_dual else 0 for nm in names], dtype=np.int32
-            )
-            qselfrid = self._self_ranks(names)
+            qdualrank, qselfrid = self.query_ranks(names)
             # stage 1: enqueue every super-batch (the device runs behind)
             inflight = []
             for L in self.length_buckets:

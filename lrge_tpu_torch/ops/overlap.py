@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .chain_kernel import IMAX, chain_dp_skip
-from .sketch import INF, sketch_core
+from .sketch_torch import INF, sketch_core
 
 # passing-target slots per row in the pair plane (overlap_jax.py:48);
 # rows with more passing targets are recomputed on the host
@@ -561,18 +561,16 @@ def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs
     return counts, torch.where(inexact, W + 1, 0), pairs
 
 
-def map_found_core(
-    lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, pen_gap, *,
-    k, max_gap, bw, min_score, num_anchors, window, no_dual, no_diag, max_chain_skip,
-    want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
+def expand_sort(
+    lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, *, k, num_anchors, no_dual,
+    no_diag,
 ):
-    """Map rows whose posting ranges ``(lo, occ)`` the lookup already
-    fetched (the reference's ``pre_ranges`` form, packed_pos, rank
-    postings).  Returns ``(counts, n_anchors, max_run, pairs)``;
-    ``n_anchors`` > ``num_anchors`` flags overflow.  ``want_pairs`` and
-    ``want_extents`` (the ``-F`` filter, with ``overhang_ratio`` and
-    ``filter_mode``) are as in :func:`_reduce_counts`; only
-    ``want_extents`` launches the kernel's extent variant."""
+    """Anchor expansion of rows whose posting ranges ``(lo, occ)`` the
+    lookup already fetched (the reference's ``pre_ranges`` form,
+    packed_pos, rank postings), the dual/diag masks, and the stable
+    (key2, rpos) sort: the chain DP's ``[B, A]`` inputs.  Returns
+    ``(key2_s, rpos_s, qpos_s, valid_s, total)`` (int64, bool; ``total``
+    is each row's anchor count before the cap ``A = num_anchors``)."""
     B, M = occ.shape
     A = num_anchors
     dev = occ.device
@@ -616,9 +614,25 @@ def map_found_core(
     # ---- stable sort by (key2, rpos): one int64 key (rpos >= 0)
     _, order = torch.sort((key2 << 32) | rpos, dim=1, stable=True)
     key2_s = key2.gather(1, order)
-    rpos_s = rpos.gather(1, order)
-    qpos_s = qpos.gather(1, order)
-    valid_s = key2_s != IMAX
+    return key2_s, rpos.gather(1, order), qpos.gather(1, order), key2_s != IMAX, total
+
+
+def map_found_core(
+    lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, pen_gap, *,
+    k, max_gap, bw, min_score, num_anchors, window, no_dual, no_diag, max_chain_skip,
+    want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
+):
+    """Map rows whose posting ranges ``(lo, occ)`` the lookup already
+    fetched: :func:`expand_sort`, the chain DP, :func:`_reduce_counts`.
+    Returns ``(counts, n_anchors, max_run, pairs)``; ``n_anchors`` >
+    ``num_anchors`` flags overflow.  ``want_pairs`` and ``want_extents``
+    (the ``-F`` filter, with ``overhang_ratio`` and ``filter_mode``) are
+    as in :func:`_reduce_counts`; only ``want_extents`` launches the
+    kernel's extent variant."""
+    key2_s, rpos_s, qpos_s, valid_s, total = expand_sort(
+        lo, occ, mps, qlen, qdualrank, qselfrid, gi, k=k, num_anchors=num_anchors,
+        no_dual=no_dual, no_diag=no_diag,
+    )
     rid_s = torch.where(valid_s, key2_s >> 1, IMAX)
     # ---- chain DP (the CUDA kernel on the card)
     i32 = lambda x: x.to(torch.int32).contiguous()
@@ -641,6 +655,28 @@ def map_found_core(
     return counts, total, max_run, pairs
 
 
+def _sketch_lookup_rows(codes_p, lengths, gi: GroupedDeviceIndex, p):
+    """Unpack, sketch and lookup over a super-batch flattened to one row
+    axis: ``(qlen, mps, mcount, lo, occ)``."""
+    NB, B, Lq = codes_p.shape
+    codes = _unpack2bit(codes_p, Lq * 4).reshape(NB * B, Lq * 4)
+    qlen = lengths.reshape(NB * B).long()
+    _, mps, mcount, lo, occ = sketch_lookup_core(codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac)
+    return qlen, mps, mcount, lo, occ
+
+
+def sketch_anchors(codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
+    """The chain DP's inputs over a super-batch, as the main path builds
+    them (:func:`sketch_map_many` up to the chain DP): ``(key2_s,
+    rpos_s, qpos_s, valid_s)``, each ``[NB * B, num_anchors]``."""
+    p = params
+    qlen, mps, _, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    return expand_sort(
+        lo, occ, mps, qlen, qdualrank.reshape(-1).long(), qselfrid.reshape(-1).long(), gi, k=p.k,
+        num_anchors=num_anchors, no_dual=p.no_dual, no_diag=p.no_diag,
+    )[:4]
+
+
 def sketch_map_many(
     codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window,
     want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
@@ -652,17 +688,11 @@ def sketch_map_many(
     the ``[NB, B, min(A, PAIR_CAP)]`` int32 plane of passing target
     ranks with ``want_pairs`` (else ``None``).  ``want_extents`` applies
     the ``-F`` filter (:func:`map_found_core`)."""
-    NB, B, Lq = codes_p.shape
-    L = Lq * 4
-    R = NB * B
-    codes = _unpack2bit(codes_p, L).reshape(R, L)
-    qlen = lengths.reshape(R).long()
+    NB, B, _ = codes_p.shape
     p = params
-    _, mps, mcount, lo, occ = sketch_lookup_core(
-        codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac
-    )
+    qlen, mps, mcount, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
     counts, n_anchors, max_run, pairs = map_found_core(
-        lo, occ, mps, qlen, qdualrank.reshape(R).long(), qselfrid.reshape(R).long(), gi,
+        lo, occ, mps, qlen, qdualrank.reshape(-1).long(), qselfrid.reshape(-1).long(), gi,
         p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw, min_score=p.min_chain_score,
         num_anchors=num_anchors, window=window, no_dual=p.no_dual, no_diag=p.no_diag,
         max_chain_skip=p.max_chain_skip, want_pairs=want_pairs, want_extents=want_extents,

@@ -1,36 +1,105 @@
-"""All-vs-all strategy on the PyTorch device engine.
+"""All-vs-all estimation strategy on the PyTorch port.
 
-Subclasses ``lrge_tpu.strategy.ava.AvaStrategy`` and overrides the two
-methods that choose and run an engine (the reference's import its JAX
-device engine).  Subsampling and the estimator are the reference's own.
+The port's own copy of ``lrge_tpu/strategy/ava.py`` (which reproduces
+`liblrge/src/ava.rs`): subsample one read set, overlap it against
+itself with the no-dual mask set (each unordered pair found once, from
+the lexicographically smaller query), count symmetrically with
+unordered-pair dedup, and estimate with n-1 averaging.
+
+Parity notes: self-overlap skip `ava.rs:277-281`; seen-pairs dedup
+`ava.rs:289-298`; symmetric increments `ava.rs:300-301`; zero-overlap
+reads get infinite estimates `ava.rs:329-335`; ``avg_read_len =
+sum_len/(n-1)`` and ``n_target = n-1`` (`ava.rs:339-345`).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import tempfile
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from lrge_tpu.estimate import per_read_estimate
-from lrge_tpu.platform import preset_for
-from lrge_tpu.strategy.ava import TRACE
-from lrge_tpu.strategy.ava import AvaBuilder as _RefAvaBuilder
-from lrge_tpu.strategy.ava import AvaStrategy as _RefAvaStrategy
-
+from .. import io as lio
+from ..compat.rust_rand import unique_random_set
 from ..device_engine import DeviceOverlapEngine, default_device, resolve_engine
-from .twoset import _FILTER_ON_HOST, _HostMapper, build_engine_no_fork
+from ..engine import ParallelHostMapper
+from ..errors import TooManyReadsError
+from ..estimate import Estimate, per_read_estimate
+from ..platform import Platform, preset_for
+from .twoset import _FILTER_ON_HOST, TRACE, U32_MAX, build_engine_no_fork
 
 logger = logging.getLogger("lrge")
 
+DEFAULT_AVA_NUM_READS = 25_000
 
-class AvaStrategy(_RefAvaStrategy):
+
+class AvaStrategy(Estimate):
     """All-vs-all strategy (``-n``, with or without ``-F``); ``device``
     pins the device engine's ``torch.device`` (default: the one CUDA card)."""
 
-    def __init__(self, input_path, *, device: torch.device | None = None, **kw):
-        super().__init__(input_path, **kw)
+    def __init__(
+        self,
+        input_path: os.PathLike | str,
+        *,
+        num_reads: int = DEFAULT_AVA_NUM_READS,
+        remove_internal: bool = False,
+        max_overhang_ratio: float = 0.2,
+        tmpdir: Optional[os.PathLike | str] = None,
+        threads: int = 1,
+        seed: Optional[int] = None,
+        platform: Platform = Platform.NANOPORE,
+        engine: str = "host",
+        device_paf: bool = False,
+        device: torch.device | None = None,
+    ):
+        self.engine = engine
+        self.device_paf = device_paf
         self.device = device
+        self.input = Path(input_path)
+        self.num_reads = num_reads
+        self.num_bases = 0
+        self.remove_internal = remove_internal
+        self.max_overhang_ratio = max_overhang_ratio
+        self.tmpdir = Path(tmpdir) if tmpdir is not None else Path(tempfile.gettempdir())
+        self.threads = threads
+        self.seed = seed
+        self.platform = platform
+
+    def subsample_reads(self):
+        logger.debug("Counting records in input file...")
+        n_reads = lio.count_records(self.input)
+        logger.debug("Found %d reads in input file", n_reads)
+        if n_reads > U32_MAX:
+            raise TooManyReadsError(
+                f"Number of reads in input file ({n_reads}) exceeds maximum "
+                f"allowed value ({U32_MAX})"
+            )
+        if n_reads < self.num_reads:
+            logger.warning(
+                "Number of reads in input file (%d) is less than the number "
+                "requested (%d)",
+                n_reads,
+                self.num_reads,
+            )
+            self.num_reads = n_reads
+        indices = set(unique_random_set(self.num_reads, n_reads, self.seed))
+        reads = []
+        sum_len = 0
+        self.tmpdir.mkdir(parents=True, exist_ok=True)
+        out_path = self.tmpdir / "reads.fa"
+        with open(out_path, "wb") as fh:
+            for idx, (name, seq) in enumerate(lio.iter_records(self.input)):
+                if idx in indices:
+                    indices.discard(idx)
+                    fh.write(b">" + name + b"\n" + seq + b"\n")
+                    reads.append((name, seq))
+                    sum_len += len(seq)
+        self.num_bases = sum_len
+        return reads, sum_len
 
     def generate_estimates(self):
         """The reference's `ava.rs` flow (strategy/ava.py:100-190): one
@@ -50,7 +119,7 @@ class AvaStrategy(_RefAvaStrategy):
                     filter_ratio=self.max_overhang_ratio,
                 )
             logger.info(_FILTER_ON_HOST)
-        mapper = _HostMapper(engine.index, self.threads)
+        mapper = ParallelHostMapper(engine.index, self.threads)
         ovlap_counter: dict[bytes, int] = {}
         seen_pairs: set[tuple[bytes, bytes]] = set()
         with open(self.tmpdir / "overlaps.paf", "w") as paf:
@@ -95,7 +164,7 @@ class AvaStrategy(_RefAvaStrategy):
         pairs: dict[int, np.ndarray] = {}
         res = dev.count_batch(names, seqs, collect_pairs=pairs, filter_ratio=filter_ratio)
         if self.device_paf:
-            mapper = _HostMapper(engine.index, self.threads)
+            mapper = ParallelHostMapper(engine.index, self.threads)
             rows = [r for r, h in zip(reads, res.had_mapping) if h]
             with open(self.tmpdir / "overlaps.paf", "w") as paf:
                 for recs in mapper.map_reads(rows):
@@ -142,10 +211,51 @@ class AvaStrategy(_RefAvaStrategy):
         return estimates, no_mapping_count
 
 
-class AvaBuilder(_RefAvaBuilder):
-    """The reference builder, building the port's strategy."""
+class AvaBuilder:
+    """Builder mirroring `liblrge/src/ava/builder.rs`."""
+
+    def __init__(self):
+        self._kw = {}
+
+    def num_reads(self, n: int) -> "AvaBuilder":
+        self._kw["num_reads"] = n
+        return self
+
+    def remove_internal(self, yes: bool, max_overhang_ratio: float = 0.2) -> "AvaBuilder":
+        self._kw["remove_internal"] = yes
+        self._kw["max_overhang_ratio"] = max_overhang_ratio
+        return self
+
+    def threads(self, n: int) -> "AvaBuilder":
+        self._kw["threads"] = n
+        return self
+
+    def tmpdir(self, path) -> "AvaBuilder":
+        self._kw["tmpdir"] = path
+        return self
+
+    def seed(self, seed: Optional[int]) -> "AvaBuilder":
+        self._kw["seed"] = seed
+        return self
+
+    def platform(self, platform: Platform | str) -> "AvaBuilder":
+        if isinstance(platform, str):
+            platform = Platform.from_str(platform)
+        self._kw["platform"] = platform
+        return self
+
+    def engine(self, engine: str) -> "AvaBuilder":
+        self._kw["engine"] = engine
+        return self
+
+    def device_paf(self, yes: bool) -> "AvaBuilder":
+        """Write overlaps.paf on device runs (host re-map of mapped
+        rows; the CLI sets this for -C/-D)."""
+        self._kw["device_paf"] = yes
+        return self
 
     def device(self, device: torch.device | None) -> "AvaBuilder":
+        """The device engine's ``torch.device`` (default: the one CUDA card)."""
         self._kw["device"] = device
         return self
 

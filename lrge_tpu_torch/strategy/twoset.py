@@ -1,32 +1,54 @@
-"""Two-set strategy on the PyTorch device engine.
+"""Two-set estimation strategy on the PyTorch port.
 
-Subclasses ``lrge_tpu.strategy.twoset.TwoSetStrategy`` and overrides the
-methods that choose and run an engine: the reference versions import its
-JAX device engine even when the host engine is chosen.  Subsampling,
-the host engine and the estimator are the reference's own; the index
-build is too, minus forked sketch workers once CUDA is live.
+The port's own copy of ``lrge_tpu/strategy/twoset.py`` (which reproduces
+`liblrge/src/twoset.rs`): subsample disjoint target and query read sets,
+build an index over the targets, count per-query unique target overlaps
+on the device engine (``device_engine.DeviceOverlapEngine``) or the
+exact host engine, and convert each count to a genome-size estimate.
+
+Orchestration parity notes (file:line refer to the reference):
+
+* read counting + u32 limit + too-few-reads shrink: `twoset.rs:122-151`
+* one-draw-then-split sampling: `twoset.rs:153-155` (target set = the
+  *last* ``target_num_reads`` sampled indices, `twoset.rs:632-652`)
+* intermediate artifacts ``target.fa``/``query.fa``/``overlaps.paf`` in
+  the temp dir: `twoset.rs:157-200,244`
+* per-read estimate inline with unique-target counting and optional
+  internal-overlap filtering: `twoset.rs:286-317`
+* ``--use-min-ref``: index the smaller set by base count and stream the
+  other (`twoset.rs:370-584`), including its inverted overhang filter
+  (`twoset.rs:493-517` drops overhang-heavy overlaps, the opposite of
+  `mapping.rs:59-77` — a reference asymmetry preserved deliberately).
 """
 
 from __future__ import annotations
 
 import logging
-from concurrent.futures import ThreadPoolExecutor
+import os
+import tempfile
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from lrge_tpu.engine import OverlapEngine, ParallelHostMapper
-from lrge_tpu.errors import DuplicateReadIdentifierError
-from lrge_tpu.estimate import per_read_estimate, per_read_estimate_batch
-from lrge_tpu.ops.index import build_index
-from lrge_tpu.platform import preset_for
-from lrge_tpu.strategy.twoset import TRACE
-from lrge_tpu.strategy.twoset import TwoSetBuilder as _RefTwoSetBuilder
-from lrge_tpu.strategy.twoset import TwoSetStrategy as _RefTwoSetStrategy
-
+from .. import io as lio
+from ..compat.rust_rand import split_into_sets, unique_random_set
 from ..device_engine import DeviceOverlapEngine, default_device, overhang_heavy, resolve_engine
+from ..engine import OverlapEngine, ParallelHostMapper
+from ..errors import DuplicateReadIdentifierError, TooFewReadsError, TooManyReadsError
+from ..estimate import Estimate, per_read_estimate, per_read_estimate_batch
+from ..ops.index import build_index
+from ..platform import Platform, preset_for
 
 logger = logging.getLogger("lrge")
+TRACE = 5  # below DEBUG, like the reference's TRACE level
+logging.addLevelName(TRACE, "TRACE")
+
+DEFAULT_TARGET_NUM_READS = 10_000
+DEFAULT_QUERY_NUM_READS = 5_000
+
+U32_MAX = 0xFFFFFFFF
 
 _FILTER_ON_HOST = (
     "-F/--filter-contained: this configuration needs mapping "
@@ -35,47 +57,134 @@ _FILTER_ON_HOST = (
 
 
 def build_engine_no_fork(reads, params) -> OverlapEngine:
-    """The reference strategies' index build over ``(name, seq)`` reads:
-    raises on a duplicate name, then indexes the reads.  It forks no
-    sketch workers once this process holds a CUDA context (a forked
-    child inherits it unusable; the reference's guard only knows JAX):
-    without the native sketcher it then sketches serially.  The index
-    is the same either way."""
-    from lrge_tpu.native import native
-
-    names = [n for n, _ in reads]
+    """The strategies' index build over ``(name, seq)`` reads: raises on
+    a duplicate name, then indexes the reads.  The build forks no sketch
+    workers once this process holds a CUDA context (``engine.fork_unsafe``)."""
     seen = set()
-    for n in names:
+    for n, _ in reads:
         if n in seen:
             raise DuplicateReadIdentifierError(n.decode("utf-8", "replace"))
         seen.add(n)
-    threads = 1 if native is None and torch.cuda.is_initialized() else 8
-    return OverlapEngine(build_index([s for _, s in reads], names, params, threads=threads))
+    return OverlapEngine(build_index([s for _, s in reads], [n for n, _ in reads], params))
 
 
-class _HostMapper(ParallelHostMapper):
-    """``ParallelHostMapper`` that maps on threads, never on forked
-    workers, once this process holds a CUDA context (a forked child
-    inherits it in an unusable state; the reference's fork guard only
-    knows about JAX)."""
-
-    def __init__(self, index, threads: int):
-        if threads > 1 and torch.cuda.is_initialized():
-            super().__init__(index, 1)  # sets up the shared engine, no pool
-            self.threads = threads
-            self._thread_pool = ThreadPoolExecutor(threads)
-        else:
-            super().__init__(index, threads)
-
-
-class TwoSetStrategy(_RefTwoSetStrategy):
+class TwoSetStrategy(Estimate):
     """Two-set strategy (forward and ``--use-min-ref``, with or without
-    ``-F``); ``device`` pins the device engine's ``torch.device``
-    (default: the one CUDA card)."""
+    ``-F``); ``engine`` is ``"host"``, ``"device"`` or ``"auto"``
+    (:func:`~lrge_tpu_torch.device_engine.resolve_engine`), and
+    ``device`` pins the device engine's ``torch.device`` (default: the
+    one CUDA card)."""
 
-    def __init__(self, input_path, *, device: torch.device | None = None, **kw):
-        super().__init__(input_path, **kw)
+    def __init__(
+        self,
+        input_path: os.PathLike | str,
+        *,
+        target_num_reads: int = DEFAULT_TARGET_NUM_READS,
+        query_num_reads: int = DEFAULT_QUERY_NUM_READS,
+        remove_internal: bool = False,
+        max_overhang_ratio: float = 0.2,
+        use_min_ref: bool = False,
+        tmpdir: Optional[os.PathLike | str] = None,
+        threads: int = 1,
+        seed: Optional[int] = None,
+        platform: Platform = Platform.NANOPORE,
+        engine: str = "host",
+        device_paf: bool = False,
+        device: torch.device | None = None,
+    ):
+        self.input = Path(input_path)
+        self.engine = engine
+        self.device_paf = device_paf
         self.device = device
+        self.target_num_reads = target_num_reads
+        self.query_num_reads = query_num_reads
+        self.target_num_bases = 0
+        self.query_num_bases = 0
+        self.remove_internal = remove_internal
+        self.max_overhang_ratio = max_overhang_ratio
+        self.use_min_ref = use_min_ref
+        self.tmpdir = Path(tmpdir) if tmpdir is not None else Path(tempfile.gettempdir())
+        self.threads = threads
+        self.seed = seed
+        self.platform = platform
+
+    # -- subsampling ---------------------------------------------------
+
+    def split_fastq(self):
+        """Select target/query reads in a single streaming pass.
+
+        Returns ``(targets, queries, avg_target_len)`` where each element
+        is a list of ``(name, seq)``; also writes ``target.fa`` and
+        ``query.fa`` to the temp dir like the reference.
+        """
+        logger.debug("Counting records in input file...")
+        n_reads = lio.count_records(self.input)
+        logger.debug("Found %d reads in input file", n_reads)
+        if n_reads > U32_MAX:
+            raise TooManyReadsError(
+                f"Number of reads in input file ({n_reads}) exceeds maximum "
+                f"allowed value ({U32_MAX})"
+            )
+        n_req = self.target_num_reads + self.query_num_reads
+        if n_reads <= self.query_num_reads:
+            raise TooFewReadsError(
+                f"Number of reads in input file ({n_reads}) is <= query "
+                f"number of reads ({self.query_num_reads})"
+            )
+        elif n_reads < n_req:
+            logger.warning(
+                "Number of reads in input file (%d) is less than the sum of "
+                "target and query reads (%d)",
+                n_reads,
+                n_req,
+            )
+            self.target_num_reads = n_reads - self.query_num_reads
+            n_req = n_reads
+            logger.warning("Using %d target reads", self.target_num_reads)
+
+        indices = unique_random_set(n_req, n_reads, self.seed)
+        target_idx, query_idx = split_into_sets(indices, self.target_num_reads)
+
+        targets: list[tuple[bytes, bytes]] = []
+        queries: list[tuple[bytes, bytes]] = []
+        sum_target = 0
+        sum_query = 0
+        target_path = self.tmpdir / "target.fa"
+        query_path = self.tmpdir / "query.fa"
+        self.tmpdir.mkdir(parents=True, exist_ok=True)
+        with open(target_path, "wb") as tf, open(query_path, "wb") as qf:
+            for idx, (name, seq) in enumerate(lio.iter_records(self.input)):
+                if idx in target_idx:
+                    target_idx.discard(idx)
+                    tf.write(b">" + name + b"\n" + seq + b"\n")
+                    targets.append((name, seq))
+                    sum_target += len(seq)
+                elif idx in query_idx:
+                    query_idx.discard(idx)
+                    qf.write(b">" + name + b"\n" + seq + b"\n")
+                    queries.append((name, seq))
+                    sum_query += len(seq)
+        self.target_num_bases = sum_target
+        self.query_num_bases = sum_query
+        avg_target_len = np.float32(sum_target) / np.float32(self.target_num_reads)
+        logger.debug("Total target bases: %d", sum_target)
+        logger.debug("Total query bases: %d", sum_query)
+        return targets, queries, float(avg_target_len)
+
+    # -- alignment + estimation ---------------------------------------
+
+    def generate_estimates(self):
+        targets, queries, avg_target_len = self.split_fastq()
+        if self.use_min_ref and self.target_num_bases > self.query_num_bases:
+            return self._align_reads_inverse(targets, queries, avg_target_len)
+        return self._align_reads(targets, queries, avg_target_len)
+
+    def _device_paf_note(self) -> str:
+        return (
+            "overlaps.paf via host re-map of mapped rows"
+            if self.device_paf
+            else "overlaps.paf not written; pass -C/-D to produce it"
+        )
 
     def _build_engine(self, reads):
         return build_engine_no_fork(reads, preset_for(self.platform, dual=True))
@@ -86,7 +195,7 @@ class TwoSetStrategy(_RefTwoSetStrategy):
 
     def _write_paf_host(self, index, rows):
         """Exact ``overlaps.paf`` side output for device runs (host re-map)."""
-        mapper = _HostMapper(index, self.threads)
+        mapper = ParallelHostMapper(index, self.threads)
         paf_path = self.tmpdir / "overlaps.paf"
         with open(paf_path, "w") as paf:
             for recs in mapper.map_reads(rows):
@@ -110,7 +219,7 @@ class TwoSetStrategy(_RefTwoSetStrategy):
             # the reference's own routing (strategy/twoset.py:209-224)
             logger.info(_FILTER_ON_HOST)
         # the reference's host branch (strategy/twoset.py:225-257)
-        mapper = _HostMapper(engine.index, self.threads)
+        mapper = ParallelHostMapper(engine.index, self.threads)
         overlap_threshold = engine.params.min_chain_score
         estimates = np.empty(len(queries), dtype=np.float32)
         no_mapping_count = 0
@@ -180,7 +289,7 @@ class TwoSetStrategy(_RefTwoSetStrategy):
                 )
             logger.info(_FILTER_ON_HOST)
         ovlap_counter = {qname: 0 for qname, _ in queries}
-        mapper = _HostMapper(engine.index, self.threads)
+        mapper = ParallelHostMapper(engine.index, self.threads)
         with open(self.tmpdir / "overlaps.paf", "w") as paf:
             for mappings in mapper.map_reads(targets):
                 unique = set()
@@ -241,11 +350,72 @@ class TwoSetStrategy(_RefTwoSetStrategy):
         self._log_no_mapping(no_mapping_count, len(queries))
         return estimates, no_mapping_count
 
+    def _log_no_mapping(self, count, total):
+        if count > 0:
+            pct = count / total * 100.0
+            logger.info(
+                "%d (%.2f%%) query read(s) did not overlap any target reads", count, pct
+            )
+        else:
+            logger.debug("All query reads overlapped with target reads")
 
-class TwoSetBuilder(_RefTwoSetBuilder):
-    """The reference builder, building the port's strategy."""
+
+class TwoSetBuilder:
+    """Builder mirroring `liblrge/src/twoset/builder.rs`."""
+
+    def __init__(self):
+        self._kw = {}
+
+    def target_num_reads(self, n: int) -> "TwoSetBuilder":
+        self._kw["target_num_reads"] = n
+        return self
+
+    def query_num_reads(self, n: int) -> "TwoSetBuilder":
+        self._kw["query_num_reads"] = n
+        return self
+
+    def remove_internal(self, yes: bool, max_overhang_ratio: float = 0.2) -> "TwoSetBuilder":
+        self._kw["remove_internal"] = yes
+        self._kw["max_overhang_ratio"] = max_overhang_ratio
+        return self
+
+    def use_min_ref(self, yes: bool) -> "TwoSetBuilder":
+        self._kw["use_min_ref"] = yes
+        return self
+
+    def threads(self, n: int) -> "TwoSetBuilder":
+        self._kw["threads"] = n
+        return self
+
+    def tmpdir(self, path) -> "TwoSetBuilder":
+        self._kw["tmpdir"] = path
+        return self
+
+    def seed(self, seed: Optional[int]) -> "TwoSetBuilder":
+        self._kw["seed"] = seed
+        return self
+
+    def platform(self, platform: Platform | str) -> "TwoSetBuilder":
+        if isinstance(platform, str):
+            platform = Platform.from_str(platform)
+        self._kw["platform"] = platform
+        return self
+
+    def engine(self, engine: str) -> "TwoSetBuilder":
+        """"host" (default; writes overlaps.paf), "device" (the CUDA
+        counting pipeline; PAF side output only with device_paf) or
+        "auto"."""
+        self._kw["engine"] = engine
+        return self
+
+    def device_paf(self, yes: bool) -> "TwoSetBuilder":
+        """Write overlaps.paf on device runs (host re-map of mapped
+        rows; the CLI sets this for -C/-D)."""
+        self._kw["device_paf"] = yes
+        return self
 
     def device(self, device: torch.device | None) -> "TwoSetBuilder":
+        """The device engine's ``torch.device`` (default: the one CUDA card)."""
         self._kw["device"] = device
         return self
 

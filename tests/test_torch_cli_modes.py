@@ -4,7 +4,7 @@
 host`` prints for ``-n``, ``--use-min-ref``, ``-F``, ``-n -F`` and
 ``--use-min-ref -F`` on the verify corpus, both on the port's host
 engine and on its device path (here on the CPU); each device run is a
-fresh interpreter that loads no ``jax`` module.
+fresh interpreter that loads no ``jax`` and no ``lrge_tpu`` module.
 """
 
 import os
@@ -16,7 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 # tiny per-op work: intra-op threads only contend with the other workers
 torch.set_num_threads(1)
-from test_torch_engine import ARGS, REPO, reference_stdout, verify_reads  # noqa: F401 (fixture)
+from test_torch_engine import (  # noqa: F401 (fixture)
+    _PORT_RUN, ARGS, NO_FOREIGN_MODULES, REPO, reference_stdout, verify_reads,
+)
 
 from lrge_tpu_torch import cli
 
@@ -29,20 +31,11 @@ MODES = {
     "inverse_filter": [*ARGS, "--use-min-ref", "-F"],
 }
 
-_PORT_RUN = """
-import sys, torch
-from lrge_tpu_torch.cli import main
-torch.set_num_threads(1)
-rc = main(sys.argv[1:], device=torch.device("cpu"))
-print("JAX_MODULES=" + ",".join(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
-sys.exit(rc)
-"""
-
 
 @pytest.fixture(scope="module")
 def port_device_runs(verify_reads):
     """Each mode on the port's device path, in a fresh interpreter (all at
-    once): ``{mode: (estimate line, JAX_MODULES line)}``."""
+    once): ``{mode: (estimate line, JAX_MODULES line, LRGE_TPU_MODULES line)}``."""
     env = dict(os.environ, PYTHONPATH=str(REPO), LRGE_DEVICE_MIN_ROWS="0")
     env.pop("JAX_PLATFORMS", None)
     procs = {
@@ -70,4 +63,6 @@ def test_cli_mode_equals_reference_host(verify_reads, port_device_runs, capsys, 
 
 
 def test_port_modes_never_load_jax(port_device_runs):
-    assert {lines[-1] for lines in port_device_runs.values()} == {"JAX_MODULES="}
+    # neither JAX nor the reference package, in any mode
+    for mode, lines in port_device_runs.items():
+        assert list(lines[-2:]) == NO_FOREIGN_MODULES, mode

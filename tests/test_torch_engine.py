@@ -5,7 +5,8 @@
   of the exact host engine (same length buckets on both).
 * ``python -m lrge_tpu_torch`` on the device engine (here on the CPU)
   prints what ``python -m lrge_tpu --engine host`` prints, byte for
-  byte, and never loads JAX.
+  byte; a fresh interpreter running the port's CLI, on the device or
+  the host engine, loads neither JAX nor any ``lrge_tpu`` module.
 * Modes outside the port so far (PacBio on the device, several hosts)
   raise; nothing falls back to another engine.
 """
@@ -122,27 +123,37 @@ def test_host_share_split_matches_host(corpus, index, monkeypatch):
     np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
 
 
+# the port's CLI in a fresh interpreter; after the estimate it prints the
+# loaded modules of JAX and of the reference package, one line each
 _PORT_RUN = """
 import sys, torch
 from lrge_tpu_torch.cli import main
 torch.set_num_threads(1)
 rc = main(sys.argv[1:], device=torch.device("cpu"))
-print("JAX_MODULES=" + ",".join(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+loaded = lambda pkg: ",".join(m for m in sys.modules if m == pkg or m.startswith(pkg + "."))
+print("JAX_MODULES=" + loaded("jax"))
+print("LRGE_TPU_MODULES=" + loaded("lrge_tpu"))
 sys.exit(rc)
 """
+NO_FOREIGN_MODULES = ["JAX_MODULES=", "LRGE_TPU_MODULES="]
 
 ARGS = ["-T", "300", "-Q", "80", "-s", "42"]
+
+
+def run_port_cli(args):
+    """The port's CLI in a fresh interpreter (``_PORT_RUN``)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), LRGE_DEVICE_MIN_ROWS="0")
+    env.pop("JAX_PLATFORMS", None)
+    return subprocess.run(
+        [sys.executable, "-c", _PORT_RUN, *args, "-qqq"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+    )
 
 
 @pytest.fixture(scope="module")
 def port_cli_run(verify_reads):
     """One fresh interpreter runs the port's CLI on the device engine."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), LRGE_DEVICE_MIN_ROWS="0")
-    env.pop("JAX_PLATFORMS", None)
-    return subprocess.run(
-        [sys.executable, "-c", _PORT_RUN, str(verify_reads), *ARGS, "--engine", "device", "-qqq"],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
+    return run_port_cli([str(verify_reads), *ARGS, "--engine", "device"])
 
 
 def reference_stdout(args):
@@ -162,8 +173,17 @@ def test_cli_device_stdout_equals_reference_host(port_cli_run, verify_reads):
 
 
 def test_port_never_loads_jax(port_cli_run):
+    # neither JAX nor the reference package, on the device engine
     assert port_cli_run.returncode == 0, port_cli_run.stderr
-    assert port_cli_run.stdout.splitlines()[-1] == "JAX_MODULES="
+    assert port_cli_run.stdout.splitlines()[-2:] == NO_FOREIGN_MODULES
+
+
+def test_port_host_engine_never_loads_reference(verify_reads):
+    res = run_port_cli([str(verify_reads), *ARGS, "--engine", "host", "-t", "2"])
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[0] + "\n" == reference_stdout([str(verify_reads), *ARGS, "--engine", "host"])
+    assert lines[-2:] == NO_FOREIGN_MODULES
 
 
 @pytest.mark.parametrize("extra", [["-F"], ["-P", "pb"], ["-t", "2"]])

@@ -1,4 +1,4 @@
-"""The chain DP wrapper and the CUDA kernel (no JAX: runs on the card too).
+"""The chain DP wrapper and the CUDA kernel (imports only the port: runs on the card too).
 
 On the CPU: the wrapper's input checks and its per-row stop.  On a CUDA
 card (marker ``gpu``; skipped without one): the kernel equals the plain
@@ -15,11 +15,11 @@ torch = pytest.importorskip("torch")
 # tiny per-op work: intra-op threads only contend with the other workers
 torch.set_num_threads(1)
 
-from lrge_tpu.engine import OverlapEngine
-from lrge_tpu.ops.index import build_index
-from lrge_tpu.platform import AVA_ONT, Platform, preset_for
 from lrge_tpu_torch.device_engine import DeviceOverlapEngine
+from lrge_tpu_torch.engine import OverlapEngine
 from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip, chain_dp_skip_plain
+from lrge_tpu_torch.ops.index import build_index
+from lrge_tpu_torch.platform import AVA_ONT, Platform, preset_for
 
 KW = dict(span=15, max_gap=AVA_ONT.max_gap, bw=AVA_ONT.bw, max_skip=25)
 IMAX = np.iinfo(np.int32).max
@@ -134,6 +134,40 @@ def test_cuda_extent_kernel_matches_plain(window):
         assert torch.equal(want[0], f) and torch.equal(want[1], broke)
         assert (want[2][1:] > 1).any(), "chains must grow past one anchor"
         assert (want[4][0] & 1).any(), "row 0 must carry a valley"
+
+
+def edge_run_rows(rng, B, A):
+    """Row 0 is one run of length A (colinear, so the chain and the skip
+    break reach deep); rows 1.. are runs of one anchor each (every key2
+    distinct), with a short valid prefix on the last row."""
+    base = np.arange(A) * 3
+    key2 = np.zeros((B, A), np.int32)
+    key2[1:] = np.arange(1, A + 1)
+    rpos = (base + rng.integers(0, 40, (B, A))).astype(np.int32)
+    rpos[0] = np.sort(rpos[0])
+    qpos = (base + rng.integers(0, 40, (B, A))).astype(np.int32)
+    valid = np.ones((B, A), np.int32)
+    nvalid = np.full(B, A, np.int32)
+    nvalid[-1] = 5
+    return [torch.from_numpy(a) for a in (key2, rpos, qpos, valid, nvalid)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [16, 32, 64, 128])
+def test_cuda_kernel_edge_runs_match_plain(window):
+    # one run as long as the row, and rows of one-anchor runs, both variants
+    need_cuda()
+    args = edge_run_rows(np.random.default_rng(window), 9, 512)
+    for extents in (False, True):
+        got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window,
+                            extents=extents, **KW)
+        torch.cuda.synchronize()
+        want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, extents=extents, **KW)
+        for name, g, w in zip(("f", "broke", "cnt", "start", "rmf"), got, want):
+            assert torch.equal(g.cpu(), w), (name, extents)
+        assert (want[0][1:-1] == KW["span"]).all(), "one-anchor runs score span"
+        if window >= 64:
+            assert want[1][0].any(), "the long run must fire the skip break"
 
 
 @pytest.mark.gpu

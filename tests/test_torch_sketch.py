@@ -21,7 +21,7 @@ from lrge_tpu.ops.overlap_jax import pack2bit_host as ref_pack2bit
 from lrge_tpu.ops.sketch_jax import hash32 as ref_hash32
 from lrge_tpu.ops.sketch_jax import sketch_batch as ref_sketch_batch
 from lrge_tpu_torch.ops.overlap import _unpack2bit, pack2bit_host
-from lrge_tpu_torch.ops.sketch import hash32, sketch_core
+from lrge_tpu_torch.ops.sketch_torch import hash32, sketch_core
 
 
 def corpus(name):

@@ -6,7 +6,8 @@
   recovered by ``map_read``); the ``-F`` runs go through the extent
   variant of the chain DP.
 * An all-vs-all ``-C`` device run writes the host's ``overlaps.paf``.
-* The index build forks no sketch workers once CUDA is live.
+* The index build and the host mapper fork no workers once CUDA is
+  live (``lrge_tpu_torch.engine.fork_unsafe``).
 """
 
 import numpy as np
@@ -17,14 +18,17 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 from test_device_engine import _contained_corpus
 
+import multiprocessing
+
 from lrge_tpu import cli as ref_cli
-from lrge_tpu.errors import DuplicateReadIdentifierError
-from lrge_tpu.ops import index as index_mod
 from lrge_tpu.ops.index import build_index
 from lrge_tpu.platform import Platform, preset_for
 from lrge_tpu.strategy.ava import AvaStrategy as RefAva
 from lrge_tpu.strategy.twoset import TwoSetStrategy as RefTwoSet
 from lrge_tpu_torch import cli, device_engine
+from lrge_tpu_torch import native as port_native
+from lrge_tpu_torch.engine import ParallelHostMapper
+from lrge_tpu_torch.errors import DuplicateReadIdentifierError
 from lrge_tpu_torch.ops import overlap
 from lrge_tpu_torch.strategy import AvaStrategy, TwoSetStrategy
 from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
@@ -115,6 +119,17 @@ def test_cli_ava_paf_side_output_matches_host(tmp_path, capsys, monkeypatch):
     assert dev_paf.read_text() == host_paf.read_text() != ""
 
 
+def no_fork_after_cuda(monkeypatch):
+    """A live CUDA context, and a ``multiprocessing`` that fails any
+    attempt to set up forked workers."""
+
+    def forked(*args, **kw):
+        raise AssertionError("forked workers after CUDA started")
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(multiprocessing, "get_context", forked)
+
+
 def test_index_build_never_forks_after_cuda(monkeypatch):
     # without the native sketcher, build_index forks sketch workers for
     # >= 2000 reads; with a live CUDA context the port sketches serially
@@ -126,15 +141,8 @@ def test_index_build_never_forks_after_cuda(monkeypatch):
     params = preset_for(Platform.NANOPORE, dual=True)
     want = build_index(seqs, names, params)
     want_ava = build_index(seqs, names, preset_for(Platform.NANOPORE, dual=False))
-
-    def forked(*args, **kw):
-        raise AssertionError("forked sketch workers after CUDA started")
-
-    import lrge_tpu.native
-
-    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
-    monkeypatch.setattr(lrge_tpu.native, "native", None)
-    monkeypatch.setattr(index_mod, "_sketch_reads_parallel", forked)
+    no_fork_after_cuda(monkeypatch)
+    monkeypatch.setattr(port_native, "native", None)
     reads = list(zip(names, seqs))
     got = build_engine_no_fork(reads, params).index
     for field in ("keys", "rid", "pos", "strand", "lengths", "name_rank"):
@@ -145,6 +153,27 @@ def test_index_build_never_forks_after_cuda(monkeypatch):
     ava = AvaStrategy("unused.fq")._build_engine(reads).index
     np.testing.assert_array_equal(ava.keys, want_ava.keys)
     np.testing.assert_array_equal(ava.rid, want_ava.rid)
+
+
+def test_host_mapper_maps_on_threads_after_cuda(monkeypatch):
+    # the host mapper's forked pool becomes a thread pool once CUDA is
+    # live, with the same mappings in the same order
+    rng = np.random.default_rng(12)
+    genome = rng.choice(list(b"ACGT"), size=30_000).astype(np.uint8).tobytes()
+    starts = rng.integers(0, len(genome) - 1500, size=40)
+    reads = [(b"m%d" % i, genome[s : s + 1500]) for i, s in enumerate(starts)]
+    index = build_engine_no_fork(reads, preset_for(Platform.NANOPORE, dual=True)).index
+    serial = ParallelHostMapper(index, 1)
+    want = [[m.to_line() for m in recs] for recs in serial.map_reads(reads[:10])]
+    serial.close()
+    no_fork_after_cuda(monkeypatch)
+    mapper = ParallelHostMapper(index, 3)
+    try:
+        assert mapper._pool is None and mapper._thread_pool is not None
+        got = [[m.to_line() for m in recs] for recs in mapper.map_reads(reads[:10])]
+    finally:
+        mapper.close()
+    assert got == want and any(want)
 
 
 @pytest.mark.parametrize("strategy", [TwoSetStrategy, AvaStrategy])

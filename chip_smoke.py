@@ -15,9 +15,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    through the port's sketch, lookup, expansion and sort): ``f`` and
    ``broke``, and for the extent variant also ``cnt``, ``start`` and
    ``rmf``, must be bit-equal (tolerance 0, integer outputs).  Each case
-   prints its run-length distribution, the kernel's time alone and with
-   its work list, the plain version's time and the bound; one run of
-   4,096 anchors alone gives the per-anchor step latency;
+   prints its run-length distribution, the time of ``chain_dp_skip`` as
+   the main path calls it, the plain version's time and the bound; one
+   run of 4,096 anchors alone gives the per-anchor step latency;
 4. the main path: ``lrge_tpu_torch.cli.main`` on a synthetic 4.4 Mbp
    genome (15,000 reads, mean 2.5 kb, 5% errors, seed 6) at the
    published run shape ``-T 10000 -Q 5000``, with ``--engine auto``,
@@ -63,7 +63,7 @@ READS, T, Q = 15_000, 10_000, 5_000  # two-set corpus and run shape
 AVA_READS, AVA_N = 26_000, 25_000  # all-vs-all corpus and -n
 SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
-PEN_GAP = 0.01 * 15  # ONT preset chn_pen_gap
+PEN_GAP = 0.01 * 15  # the synthetic cases' gap penalty (the main path's is the preset's)
 IMAX = np.iinfo(np.int32).max
 # the chain DP's bound: integer/f32 operations per (anchor, in-run
 # predecessor) pair, counted from the loop body of csrc/chain_dp.cu:
@@ -119,6 +119,18 @@ def chain_bound(lens, B, A, W, extents):
     return (float(t_ops), "operations") if t_ops >= t_bytes else (float(t_bytes), "bytes")
 
 
+def run_lengths(key2, nvalid):
+    """The lengths of the kernel's runs, row-major: maximal slices of
+    equal ``key2`` within each row's ``[0, nvalid)``."""
+    k = key2.cpu().numpy()
+    n = np.clip(nvalid.cpu().numpy(), 0, k.shape[1])
+    starts = np.arange(k.shape[1])[None, :] < n[:, None]
+    starts[:, 1:] &= k[:, 1:] != k[:, :-1]
+    row, col = np.nonzero(starts)
+    same_row = np.append(row[1:] == row[:-1], False)
+    return np.where(same_row, np.append(col[1:], 0), n[row]) - col
+
+
 def cuda_ms(fn, reps=20):
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events, after
     three warm-up calls)."""
@@ -134,34 +146,31 @@ def cuda_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def kernel_case(ck, tag, name, arrs, W, kw):
-    """One phase-3 case: the kernel against its plain version on the
-    same [B, A] inputs, bit for bit, with times, the run-length
+def kernel_case(ck, tag, name, arrs, W, kw, pen_gap=PEN_GAP):
+    """One phase-3 case: ``chain_dp_skip`` against its plain version on
+    the same [B, A] inputs, bit for bit, with times, the run-length
     distribution and the bound.  Returns the case's record."""
     key2, rpos, qpos, valid = arrs
     B, A = key2.shape
     nvalid = valid.sum(dim=1).to(torch.int32)
-    args = (key2, rpos, qpos, valid, nvalid, PEN_GAP)
-    w_ms = cuda_ms(lambda: ck.chain_dp_skip(*args, window=W, **kw))
-    work = ck.run_worklist(key2, nvalid)
-    k_ms = cuda_ms(lambda: ck.launch_runs(work, *args[1:], window=W, **kw))
+    args = (key2, rpos, qpos, valid, nvalid, pen_gap)
+    k_ms = cuda_ms(lambda: ck.chain_dp_skip(*args, window=W, **kw))
     got = ck.chain_dp_skip(*args, window=W, **kw)
     t0 = time.perf_counter()
     want = ck.chain_dp_skip_plain(*args, window=W, **kw)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    lens = work[1].cpu().numpy()
-    lens = lens[lens > 0]  # one entry per run
+    lens = run_lengths(key2, nvalid)
     bound_ms, bound_by = chain_bound(lens, B, A, W, kw["extents"])
     extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if kw["extents"] else ""
     print(f"[{tag}] {name} [{B}, {A}] W={W}: runs {len(lens)} ({len(lens) / B:.1f} a row), run length "
           f"max {lens.max()} p99 {np.percentile(lens, 99):.0f} median {np.median(lens):.0f}; kernel "
-          f"{k_ms:.4f} ms, with work list {w_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bound_ms:.4f} ms "
+          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}); max_abs_err {err}, broke anchors {int(want[1].sum())}{extra}", flush=True)
     if err:
         fail(f"chain kernel ({tag}) != plain version on {name}")
-    return dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=err, max_run=int(lens.max()), broke=int(want[1].sum()))
 
 
@@ -214,7 +223,7 @@ def main_path_case(ck, engine, names, seqs, recs, extents=False):
     p = engine.params
     kw = dict(span=p.k, max_gap=p.max_gap, bw=p.bw, max_skip=p.max_chain_skip, extents=extents)
     rec = kernel_case(ck, tag, f"main_path (bucket L={L})", [i32(x) for x in (key2, rpos, qpos, valid)],
-                      engine.window, kw)
+                      engine.window, kw, pen_gap=p.chn_pen_gap())
     print(f"[{tag}] main_path critical-path floor: longest run {rec['max_run']} x "
           f"{recs['step_us']:.4f} us = {rec['max_run'] * recs['step_us'] / 1e3:.4f} ms", flush=True)
     recs["main_path"] = rec
@@ -487,7 +496,7 @@ def main() -> int:
             "replaces": "lrge_tpu/ops/chain_pallas.py:274", "launches": n,
             "max_abs_err": max(c["max_abs_err"] for k, c in r.items() if k != "step_us"),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None, "wrapper_ms": m["wrapper_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
         }
 
     kernels = [record("chain_dp_skip", recs, launches),

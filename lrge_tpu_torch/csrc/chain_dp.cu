@@ -15,9 +15,8 @@
 // Why runs are independent.  A row is sorted by (key2, rpos), key2 =
 // rid * 2 + strand, so each key2 value is one contiguous run of slots.  A
 // predecessor counts only when it is `ok`, and `ok` needs ring_key == ck
-// (chain_pallas.py:149; chain_dp.cu before the run walk had the same
-// test).  The marked set
-// (chain_pallas.py:164) takes votes from ok positions only, and
+// (chain_pallas.py:149).  The marked set (chain_pallas.py:164) takes
+// votes from ok positions only, and
 // `improving` needs ok, so the skip counter moves only on positions of the
 // anchor's own run; the best score and its position do too.  An anchor's
 // f, broke, cnt, start and rmf therefore depend only on the earlier
@@ -46,19 +45,21 @@
 // hundredths of a millisecond at the main shapes.  What the card waits on
 // is the chain of ~25 dependent shuffle rounds per anchor: a warp's walk
 // lasts (its anchors) x (one step's latency).  The row-per-warp design
-// this replaces ran 512-1,024 warps, each as long as its row.  Here the
-// wrapper builds a work list of runs sorted longest first (one entry per
-// slot, the slots that start no run after the last run, so no host sync
-// sizes it), and a persistent grid of warps, sized to the card's resident
-// warps, takes runs from it: the first wave spread over the blocks, then
-// through an atomic counter.  The longest runs start at once and the
-// short ones fill in behind them, so a launch lasts about max(longest
-// run x step latency, all anchors x step / resident warps).  On an H100
-// the step of one run walked alone is ~0.6 us at W = 32; with the card
-// full, warps share their SM's issue slots and each step takes longer.
-// After the work list is spent, each warp writes (NEG, 0) (and 0 for the
-// EXT planes) into the slots past the valid counts of its share of rows.
-//
+// this replaces ran 512-1,024 warps, each as long as its row.  Here each
+// launch runs two kernels.  find_runs_kernel gives each 32-slot chunk of
+// a row one warp, which marks the chunk's run starts with one ballot over
+// key2, writes the padding past the row's count ((NEG, 0), and 0 for the
+// EXT planes), and lists the chunk: in the long list when its last run
+// reaches the chunk's end (every run longer than a chunk is one), in the
+// short list when it starts other runs.  chain_dp_kernel, a persistent
+// grid sized to the card's resident warps, then walks every long run to
+// its end and after them every short-run chunk's runs, one item a claim.
+// The long runs set the critical path and are fewer than the resident
+// warps on the main path, so they all start in the first wave; a launch
+// lasts about max(longest run x step latency, all anchors x step /
+// resident warps).  The lists stay on the card (no host sync, no sort)
+// and each slot is written once.
+
 // Float rounding follows the reference op for op (no FMA contraction:
 // explicit _rn intrinsics, and the build passes -fmad=false).
 
@@ -71,10 +72,10 @@ constexpr int IMAX = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS_PER_BLOCK = 8;
 
-// resident blocks per SM asked of ptxas: W <= 32 fits 64 warps an SM in
-// its registers (32 a thread, with a few bytes of spill; 6 blocks, 37-40
-// registers and no spill, ran no faster on an H100), the deeper rings
-// take fewer warps
+// resident blocks per SM asked of ptxas for the walk: W <= 32 fits 64
+// warps an SM in its registers (32 a thread, with some spill; 6 blocks
+// and 40 registers walked the main path's anchors slower on an H100),
+// the deeper rings take fewer warps
 template <int W>
 struct MinBlocks {
   static constexpr int value = W <= 32 ? 8 : (W == 64 ? 4 : 2);
@@ -112,13 +113,11 @@ struct AddOp {
 };
 
 struct Args {
+  const int* key2;
   const int* rpos;
   const int* qpos;
   const int* valid;
   const int* nvalid;
-  const long long* order;  // [B * A]: flat slots, run starts longest first
-  const int* length;       // [B, A]: run length at each run's start, else 0
-  int* next;               // work counter, 0 at launch
   int B, A;
   float pen_gap;
   int span, max_gap, bw, max_skip;
@@ -129,269 +128,406 @@ struct Args {
   int* rmf_out;
 };
 
-// Walk one run: slots [st, st + len) of row `row`, ring empty at its start.
+// A run's predecessor ring: lane l holds positions d = l*S + s.
 template <int W, bool EXT>
-__device__ __forceinline__ void walk_run(const Args a, int row, int st, int len, int lane) {
-  constexpr int S = W >= 32 ? W / 32 : 1;
-  constexpr int P = W >= 32 ? W / 32 : 1;  // vote planes
-  const size_t off = static_cast<size_t>(row) * a.A;
-  const int end = st + len;
-  const float pen_gap = a.pen_gap;
-  const int span = a.span, max_gap = a.max_gap, bw = a.bw, max_skip = a.max_skip;
-
+struct Ring {
+  static constexpr int S = W >= 32 ? W / 32 : 1;
   int rr[S], rq[S], rf[S], rp[S];
   bool rok[S];
   // extent rings (EXT only): chain count, packed chain start, rmf
   int rc[EXT ? S : 1], rs[EXT ? S : 1], rm[EXT ? S : 1];
+
+  __device__ __forceinline__ Ring() {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
-    if constexpr (EXT) { rc[s] = 0; rs[s] = 0; rm[s] = 0; }
+    for (int s = 0; s < S; ++s) {
+      rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
+      if constexpr (EXT) { rc[s] = 0; rs[s] = 0; rm[s] = 0; }
+    }
   }
+};
 
-  for (int base = st; base < end; base += 32) {
-    const int idx = base + lane;
-    int lr = 0, lq = 0, lv = 0;
-    if (idx < end) {
-      lr = a.rpos[off + idx]; lq = a.qpos[off + idx]; lv = a.valid[off + idx];
-    }
-    int my_f = NEG, my_b = 0, my_c = 0, my_s = 0, my_r = 0;
-    const int m = min(32, end - base);
-    for (int j = 0; j < m; ++j) {
-      const int i = base + j;  // absolute slot
-      const int cr = __shfl_sync(FULL, lr, j);
-      const int cq = __shfl_sync(FULL, lq, j);
-      const bool cv = __shfl_sync(FULL, lv, j) != 0;
+// One lane's outputs for the slot it holds; the initial value is the
+// padding's.
+struct Out {
+  int f = NEG, b = 0, c = 0, s = 0, r = 0;
+};
 
-      // candidate scores against the ring
-      int cand[S];
-      bool okv[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int d = lane * S + s;
-        const int dq = cq - rq[s];
-        const int dr = cr - rr[s];
-        const int dd = abs(dr - dq);
-        const int dg = min(dq, dr);
-        const bool ok = d < W && rok[s] && dq > 0 && dq <= max_gap &&
-                        dr > 0 && dr <= max_gap && dd <= bw;
-        int c = NEG;
-        if (ok) {
-          int sc = min(dg, span);
-          const float lin = __fmul_rn(pen_gap, static_cast<float>(dd));
-          const float logp = dd >= 1 ? mg_log2(static_cast<float>(dd + 1)) : 0.0f;
-          const int pen = static_cast<int>(__fadd_rn(lin, __fmul_rn(0.5f, logp)));
-          if (dd != 0 || dg > span) sc -= pen;
-          c = sc + rf[s];
-        }
-        cand[s] = c;
-        okv[s] = ok;
-      }
-
-      // marked[d]: some ok position d' stores the slot at position d as
-      // its predecessor (p_rel = i-1-p[d'] == d)
-      unsigned votes[P];
-#pragma unroll
-      for (int b = 0; b < P; ++b) {
-        unsigned v = 0;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const int sh = (i - 1 - rp[s]) - 32 * b;
-          if (okv[s] && sh >= 0 && sh < 32) v |= 1u << sh;
-        }
-        votes[b] = __reduce_or_sync(FULL, v);
-      }
-
-      // running max of cand (exclusive at each position), seeded with span
-      int loc[S];
-      loc[0] = cand[0];
-#pragma unroll
-      for (int s = 1; s < S; ++s) loc[s] = max(loc[s - 1], cand[s]);
-      const int cx = warp_excl_scan(loc[S - 1], NEG, lane, MaxOp());
-      int av[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int d = lane * S + s;
-        const int prev = s == 0 ? cx : max(cx, loc[s - 1]);
-        const bool improving = okv[s] && cand[s] > max(prev, span);
-        const bool marked = (votes[(d >> 5) % P] >> (d & 31)) & 1u;
-        av[s] = (okv[s] && marked && !improving) - (improving ? 1 : 0);
-      }
-
-      // Lindley skip counter: n_skip = S_t - min(0, min_{u<=t} S_u)
-      int sc_[S];
-      sc_[0] = av[0];
-#pragma unroll
-      for (int s = 1; s < S; ++s) sc_[s] = sc_[s - 1] + av[s];
-      const int sx = warp_excl_scan(sc_[S - 1], 0, lane, AddOp());
-#pragma unroll
-      for (int s = 0; s < S; ++s) sc_[s] += sx;
-      int mn[S];
-      mn[0] = sc_[0];
-#pragma unroll
-      for (int s = 1; s < S; ++s) mn[s] = min(mn[s - 1], sc_[s]);
-      const int mx = warp_excl_scan(mn[S - 1], IMAX, lane, MinOp());
-      int cut = W;
-#pragma unroll
-      for (int s = S - 1; s >= 0; --s) {
-        const int runmin = min(min(mx, mn[s]), 0);
-        if (lane * S + s < W && sc_[s] - runmin > max_skip) cut = lane * S + s;
-      }
-      cut = __reduce_min_sync(FULL, cut);
-
-      // best predecessor among examined positions (d <= cut); ties keep
-      // the nearest (smallest d)
-      int best = NEG;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (lane * S + s > cut) cand[s] = NEG;
-        best = max(best, cand[s]);
-      }
-      best = __reduce_max_sync(FULL, best);
-      int bd = W;
-#pragma unroll
-      for (int s = S - 1; s >= 0; --s)
-        if (cand[s] == best) bd = lane * S + s;
-      bd = __reduce_min_sync(FULL, bd);
-
-      const bool has_pred = best > span;
-      const int f_t = cv ? max(span, best) : NEG;
-      const int p_t = (cv && has_pred) ? i - 1 - bd : -1;
-      int c_t = 0, s_t = 0, r_t = 0;
-      if constexpr (EXT) {
-        // the chosen predecessor's carries: slot bd % S of lane bd / S
-        int gc = 0, gs = 0, gm = 0;
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (s == bd % S) { gc = rc[s]; gs = rs[s]; gm = rm[s]; }
-        gc = __shfl_sync(FULL, gc, bd / S);
-        gs = __shfl_sync(FULL, gs, bd / S);
-        gm = __shfl_sync(FULL, gm, bd / S);
-        if (cv && has_pred) {
-          const int prevmax = gm >> 1;
-          const int valley = (gm & 1) | (prevmax - f_t > bw ? 1 : 0);
-          c_t = gc + 1;
-          s_t = gs;
-          r_t = (max(prevmax, f_t) << 1) | valley;
-        } else if (cv) {
-          // a chain starts here (int32 wrap as in the reference; the
-          // -F gate keeps rpos < 2^15)
-          c_t = 1;
-          s_t = static_cast<int>((static_cast<unsigned>(cr) << 16) | static_cast<unsigned>(cq));
-          r_t = f_t << 1;
-        }
-      }
-      if (lane == j) {
-        my_f = f_t;
-        my_b = (cv && cut < W) ? 1 : 0;
-        if constexpr (EXT) { my_c = c_t; my_s = s_t; my_r = r_t; }
-      }
-
-      // push the anchor onto the ring (newest first)
-#define LRGE_PUSH(R, NEWV)                                  \
-  {                                                         \
-    const int carry = __shfl_up_sync(FULL, (int)R[S - 1], 1); \
-    _Pragma("unroll") for (int s = S - 1; s > 0; --s) R[s] = R[s - 1]; \
-    R[0] = lane == 0 ? (NEWV) : carry;                      \
-  }
-      LRGE_PUSH(rr, cr)
-      LRGE_PUSH(rq, cq)
-      LRGE_PUSH(rf, f_t)
-      LRGE_PUSH(rp, p_t)
-      LRGE_PUSH(rok, cv)
-      if constexpr (EXT) {
-        LRGE_PUSH(rc, c_t)
-        LRGE_PUSH(rs, s_t)
-        LRGE_PUSH(rm, r_t)
-      }
-#undef LRGE_PUSH
-    }
-    if (idx < end) {
-      a.f_out[off + idx] = my_f;
-      a.broke_out[off + idx] = my_b;
-      if constexpr (EXT) {
-        a.cnt_out[off + idx] = my_c;
-        a.start_out[off + idx] = my_s;
-        a.rmf_out[off + idx] = my_r;
-      }
-    }
+template <bool EXT>
+__device__ __forceinline__ void store(const Args& a, size_t at, const Out& o) {
+  a.f_out[at] = o.f;
+  a.broke_out[at] = o.b;
+  if constexpr (EXT) {
+    a.cnt_out[at] = o.c;
+    a.start_out[at] = o.s;
+    a.rmf_out[at] = o.r;
   }
 }
 
+// Walk slots [base + j0, base + j1) of the 32-slot block whose slot
+// base + lane is held in lane `lane` (lr, lq, lv), continuing ring R;
+// slot base + j's outputs go to lane j's `o`.
+template <int W, bool EXT>
+__device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int base, int j0, int j1,
+                                           int lr, int lq, int lv, int lane, Out& o) {
+  constexpr int S = Ring<W, EXT>::S;
+  constexpr int P = W >= 32 ? W / 32 : 1;  // vote planes
+  const float pen_gap = a.pen_gap;
+  const int span = a.span, max_gap = a.max_gap, bw = a.bw, max_skip = a.max_skip;
+  for (int j = j0; j < j1; ++j) {
+    const int i = base + j;  // absolute slot
+    const int cr = __shfl_sync(FULL, lr, j);
+    const int cq = __shfl_sync(FULL, lq, j);
+    const bool cv = __shfl_sync(FULL, lv, j) != 0;
+
+    // candidate scores against the ring
+    int cand[S];
+    bool okv[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int d = lane * S + s;
+      const int dq = cq - R.rq[s];
+      const int dr = cr - R.rr[s];
+      const int dd = abs(dr - dq);
+      const int dg = min(dq, dr);
+      const bool ok = d < W && R.rok[s] && dq > 0 && dq <= max_gap &&
+                      dr > 0 && dr <= max_gap && dd <= bw;
+      int c = NEG;
+      if (ok) {
+        int sc = min(dg, span);
+        const float lin = __fmul_rn(pen_gap, static_cast<float>(dd));
+        const float logp = dd >= 1 ? mg_log2(static_cast<float>(dd + 1)) : 0.0f;
+        const int pen = static_cast<int>(__fadd_rn(lin, __fmul_rn(0.5f, logp)));
+        if (dd != 0 || dg > span) sc -= pen;
+        c = sc + R.rf[s];
+      }
+      cand[s] = c;
+      okv[s] = ok;
+    }
+
+    // marked[d]: some ok position d' stores the slot at position d as
+    // its predecessor (p_rel = i-1-p[d'] == d)
+    unsigned votes[P];
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      unsigned v = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int sh = (i - 1 - R.rp[s]) - 32 * b;
+        if (okv[s] && sh >= 0 && sh < 32) v |= 1u << sh;
+      }
+      votes[b] = __reduce_or_sync(FULL, v);
+    }
+
+    // running max of cand (exclusive at each position), seeded with span
+    int loc[S];
+    loc[0] = cand[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) loc[s] = max(loc[s - 1], cand[s]);
+    const int cx = warp_excl_scan(loc[S - 1], NEG, lane, MaxOp());
+    int av[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int d = lane * S + s;
+      const int prev = s == 0 ? cx : max(cx, loc[s - 1]);
+      const bool improving = okv[s] && cand[s] > max(prev, span);
+      const bool marked = (votes[(d >> 5) % P] >> (d & 31)) & 1u;
+      av[s] = (okv[s] && marked && !improving) - (improving ? 1 : 0);
+    }
+
+    // Lindley skip counter: n_skip = S_t - min(0, min_{u<=t} S_u)
+    int sc_[S];
+    sc_[0] = av[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) sc_[s] = sc_[s - 1] + av[s];
+    const int sx = warp_excl_scan(sc_[S - 1], 0, lane, AddOp());
+#pragma unroll
+    for (int s = 0; s < S; ++s) sc_[s] += sx;
+    int mn[S];
+    mn[0] = sc_[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) mn[s] = min(mn[s - 1], sc_[s]);
+    const int mx = warp_excl_scan(mn[S - 1], IMAX, lane, MinOp());
+    int cut = W;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s) {
+      const int runmin = min(min(mx, mn[s]), 0);
+      if (lane * S + s < W && sc_[s] - runmin > max_skip) cut = lane * S + s;
+    }
+    cut = __reduce_min_sync(FULL, cut);
+
+    // best predecessor among examined positions (d <= cut); ties keep
+    // the nearest (smallest d)
+    int best = NEG;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (lane * S + s > cut) cand[s] = NEG;
+      best = max(best, cand[s]);
+    }
+    best = __reduce_max_sync(FULL, best);
+    int bd = W;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s)
+      if (cand[s] == best) bd = lane * S + s;
+    bd = __reduce_min_sync(FULL, bd);
+
+    const bool has_pred = best > span;
+    const int f_t = cv ? max(span, best) : NEG;
+    const int p_t = (cv && has_pred) ? i - 1 - bd : -1;
+    int c_t = 0, s_t = 0, r_t = 0;
+    if constexpr (EXT) {
+      // the chosen predecessor's carries: slot bd % S of lane bd / S
+      int gc = 0, gs = 0, gm = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (s == bd % S) { gc = R.rc[s]; gs = R.rs[s]; gm = R.rm[s]; }
+      gc = __shfl_sync(FULL, gc, bd / S);
+      gs = __shfl_sync(FULL, gs, bd / S);
+      gm = __shfl_sync(FULL, gm, bd / S);
+      if (cv && has_pred) {
+        const int prevmax = gm >> 1;
+        const int valley = (gm & 1) | (prevmax - f_t > bw ? 1 : 0);
+        c_t = gc + 1;
+        s_t = gs;
+        r_t = (max(prevmax, f_t) << 1) | valley;
+      } else if (cv) {
+        // a chain starts here (int32 wrap as in the reference; the
+        // -F gate keeps rpos < 2^15)
+        c_t = 1;
+        s_t = static_cast<int>((static_cast<unsigned>(cr) << 16) | static_cast<unsigned>(cq));
+        r_t = f_t << 1;
+      }
+    }
+    if (lane == j) {
+      o.f = f_t;
+      o.b = (cv && cut < W) ? 1 : 0;
+      if constexpr (EXT) { o.c = c_t; o.s = s_t; o.r = r_t; }
+    }
+
+    // push the anchor onto the ring (newest first)
+#define LRGE_PUSH(X, NEWV)                                          \
+  {                                                                 \
+    const int carry = __shfl_up_sync(FULL, (int)R.X[S - 1], 1);     \
+    _Pragma("unroll") for (int s = S - 1; s > 0; --s) R.X[s] = R.X[s - 1]; \
+    R.X[0] = lane == 0 ? (NEWV) : carry;                            \
+  }
+    LRGE_PUSH(rr, cr)
+    LRGE_PUSH(rq, cq)
+    LRGE_PUSH(rf, f_t)
+    LRGE_PUSH(rp, p_t)
+    LRGE_PUSH(rok, cv)
+    if constexpr (EXT) {
+      LRGE_PUSH(rc, c_t)
+      LRGE_PUSH(rs, s_t)
+      LRGE_PUSH(rm, r_t)
+    }
+#undef LRGE_PUSH
+  }
+}
+
+// A chunk is slots [32k, 32k + 32) of one row; chunk c is row c / nck,
+// k = c % nck.  A run starts at a slot below the row's count whose key2
+// differs from the slot before (the boundary2 test of
+// ops/overlap.py::_reduce_counts).  The chunk's last run is "long" when it
+// reaches the chunk's end (every slot after its start is inside the row
+// and starts no run): it may go on into later chunks, and every run that
+// spans more than one chunk is one.  Its other runs are "short".
+struct Chunk {
+  size_t off;  // row * A
+  int base, n, idx;
+  bool in;     // slot base + lane is below the row's count
+};
+
+__device__ __forceinline__ Chunk chunk_at(const Args& a, int c, int lane) {
+  const int nck = (a.A + 31) / 32;
+  const int row = c / nck;
+  Chunk ch;
+  ch.off = static_cast<size_t>(row) * a.A;
+  ch.base = 32 * (c - row * nck);
+  const int n = a.nvalid[row];
+  ch.n = n < 0 ? 0 : (n > a.A ? a.A : n);
+  ch.idx = ch.base + lane;
+  ch.in = ch.idx < ch.n;
+  return ch;
+}
+
+// The run starts of chunk `ch` (a ballot), whose slots inside the row are
+// `inside`; `last` is the last start (32 when none) and `reaches` says
+// that its run is long.
+struct Starts {
+  unsigned starts, inside;
+  int last;
+  bool reaches;
+};
+
+__device__ __forceinline__ Starts starts_of(const Args& a, const Chunk& ch, int key, int lane) {
+  int prev = __shfl_up_sync(FULL, key, 1);
+  if (lane == 0 && ch.in && ch.base > 0) prev = a.key2[ch.off + ch.base - 1];
+  Starts st;
+  st.starts = __ballot_sync(FULL, ch.in && (ch.idx == 0 || key != prev));
+  st.inside = __ballot_sync(FULL, ch.in);
+  st.last = st.starts ? 31 - __clz(st.starts) : 32;
+  st.reaches = st.last < 32 && (st.last == 31 || (st.inside >> (st.last + 1)) == (FULL >> (st.last + 1)));
+  return st;
+}
+
+// Kernel 1: one warp per chunk.  Writes the padding (slots from the row's
+// count to A) and appends the chunk to the long list (as c * 32 + the
+// long run's start lane) and/or the short list (as c); one 64-bit atomic
+// per block of 32 chunks takes both lists' places.
+template <bool EXT>
+__global__ void __launch_bounds__(1024) find_runs_kernel(const Args a, unsigned long long* counts,
+                                                          int* longs, int* shorts) {
+  __shared__ int flags[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cells = a.B * ((a.A + 31) / 32);
+  const int c = blockIdx.x * 32 + warp;
+  int flag = 0;  // bit 0: long run, bits 1-5: its lane; bit 6: short runs
+  if (c < cells) {
+    const Chunk ch = chunk_at(a, c, lane);
+    const int key = ch.in ? a.key2[ch.off + ch.idx] : IMAX;
+    const Starts st = starts_of(a, ch, key, lane);
+    const unsigned rest = st.reaches ? st.starts & ~(1u << st.last) : st.starts;
+    flag = (st.reaches ? 1 | (st.last << 1) : 0) | (rest ? 64 : 0);
+    if (!ch.in && ch.idx < a.A) store<EXT>(a, ch.off + ch.idx, Out());
+  }
+  if (lane == 0) flags[warp] = flag;
+  __syncthreads();
+  if (warp == 0) {
+    const int f = flags[lane];
+    const unsigned lm = __ballot_sync(FULL, f & 1), sm = __ballot_sync(FULL, f & 64);
+    unsigned long long old = 0;
+    if (lane == 0 && (lm | sm))
+      old = atomicAdd(counts, (static_cast<unsigned long long>(__popc(lm)) << 32) | __popc(sm));
+    old = __shfl_sync(FULL, old, 0);
+    const unsigned below = (1u << lane) - 1u;
+    const int cl = blockIdx.x * 32 + lane;
+    if (f & 1) longs[static_cast<int>(old >> 32) + __popc(lm & below)] = cl * 32 + ((f >> 1) & 31);
+    if (f & 64) shorts[static_cast<int>(old & 0xffffffffu) + __popc(sm & below)] = cl;
+  }
+}
+
+// The long run of chunk c, from lane `last`, walked to its end.
+template <int W, bool EXT>
+__device__ __forceinline__ void walk_long(const Args& a, int c, int last, int lane) {
+  const Chunk ch = chunk_at(a, c, lane);
+  int lr = 0, lq = 0, lv = 0;
+  if (lane >= last) {
+    lr = a.rpos[ch.off + ch.idx]; lq = a.qpos[ch.off + ch.idx]; lv = a.valid[ch.off + ch.idx];
+  }
+  const int rk = a.key2[ch.off + ch.base + 31];
+  Ring<W, EXT> R;
+  {
+    Out o;
+    walk_block<W, EXT>(R, a, ch.base, last, 32, lr, lq, lv, lane, o);
+    if (lane >= last) store<EXT>(a, ch.off + ch.idx, o);
+  }
+  for (int b = ch.base + 32; b < ch.n; b += 32) {
+    const int id = b + lane;
+    int k2 = IMAX, r2 = 0, q2 = 0, v2 = 0;
+    if (id < ch.n) {
+      k2 = a.key2[ch.off + id]; r2 = a.rpos[ch.off + id]; q2 = a.qpos[ch.off + id]; v2 = a.valid[ch.off + id];
+    }
+    const unsigned run = __ballot_sync(FULL, id < ch.n && k2 == rk);
+    const int m = run == FULL ? 32 : __ffs(~run) - 1;
+    if (m == 0) break;
+    Out o;
+    walk_block<W, EXT>(R, a, b, 0, m, r2, q2, v2, lane, o);
+    if (lane < m) store<EXT>(a, ch.off + id, o);
+    if (m < 32) break;
+  }
+}
+
+// The short runs of chunk c, each from an empty ring.
+template <int W, bool EXT>
+__device__ __forceinline__ void walk_short(const Args& a, int c, int lane) {
+  const Chunk ch = chunk_at(a, c, lane);
+  int key = IMAX, lr = 0, lq = 0, lv = 0;
+  if (ch.in) {
+    key = a.key2[ch.off + ch.idx];
+    lr = a.rpos[ch.off + ch.idx]; lq = a.qpos[ch.off + ch.idx]; lv = a.valid[ch.off + ch.idx];
+  }
+  const Starts st = starts_of(a, ch, key, lane);
+  unsigned todo = st.reaches ? st.starts & ~(1u << st.last) : st.starts;
+  const unsigned stops = st.starts | ~st.inside;  // a run ends before these
+  const int first = __ffs(todo) - 1;
+  const int lim = st.reaches ? st.last : 32;
+  Out o;
+  while (todo) {
+    const int j0 = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const unsigned after = j0 == 31 ? 0u : stops >> (j0 + 1);
+    Ring<W, EXT> R;
+    walk_block<W, EXT>(R, a, ch.base, j0, after ? j0 + __ffs(after) : 32, lr, lq, lv, lane, o);
+  }
+  if (ch.in && lane >= first && lane < lim) store<EXT>(a, ch.off + ch.idx, o);
+}
+
+// Kernel 2: a persistent grid walks the long runs, then the short-run
+// chunks.  The first wave is static and block-major (item e goes to warp
+// e / gridDim.x of block e % gridDim.x), so the long runs spread over the
+// SMs instead of crowding the first blocks to start; later items come
+// from an atomic counter, fetched before the current item is walked so
+// that the atomic's latency hides behind the walk.
 template <int W, bool EXT>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK, MinBlocks<W>::value)
-chain_dp_kernel(const Args a) {
+chain_dp_kernel(const Args a, const unsigned long long* counts, const int* longs, const int* shorts,
+                int* next) {
   const int lane = threadIdx.x & 31;
-  // runs, longest first, until the first entry of length 0.  The first
-  // wave is static and block-major (entry e goes to warp e / gridDim.x
-  // of block e % gridDim.x), so the longest runs spread over the SMs
-  // instead of crowding the first blocks to start; later entries come
-  // from an atomic counter, fetched before the current run is walked so
-  // that the atomic's latency hides behind the walk.
-  const int cap = a.B * a.A;
+  const unsigned long long cnt = *counts;
+  const int nl = static_cast<int>(cnt >> 32);
+  const int items = nl + static_cast<int>(cnt & 0xffffffffu);
   const int total = gridDim.x * WARPS_PER_BLOCK;
   int e = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  while (e < cap) {
-    const long long flat = a.order[e];
-    const int len = a.length[flat];
-    if (len == 0) break;
+  while (e < items) {
     int nxt = 0;
-    if (lane == 0) nxt = total + atomicAdd(a.next, 1);
-    const int row = static_cast<int>(flat / a.A);
-    walk_run<W, EXT>(a, row, static_cast<int>(flat - static_cast<long long>(row) * a.A), len, lane);
-    e = __shfl_sync(FULL, nxt, 0);
-  }
-  // padding: slots [nvalid, A) of each row, rows strided over the warps
-  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  for (int row = warp; row < a.B; row += gridDim.x * WARPS_PER_BLOCK) {
-    const size_t off = static_cast<size_t>(row) * a.A;
-    int n = a.nvalid[row];
-    n = n < 0 ? 0 : (n > a.A ? a.A : n);
-    for (int idx = n + lane; idx < a.A; idx += 32) {
-      a.f_out[off + idx] = NEG;
-      a.broke_out[off + idx] = 0;
-      if constexpr (EXT) {
-        a.cnt_out[off + idx] = 0;
-        a.start_out[off + idx] = 0;
-        a.rmf_out[off + idx] = 0;
-      }
+    if (lane == 0) nxt = total + atomicAdd(next, 1);
+    if (e < nl) {
+      const int v = longs[e];
+      walk_long<W, EXT>(a, v >> 5, v & 31, lane);
+    } else {
+      walk_short<W, EXT>(a, shorts[e - nl], lane);
     }
+    e = __shfl_sync(FULL, nxt, 0);
   }
 }
 
+// The scratch `work` (int32, 4 + 2 * chunks, 8-byte aligned): the two
+// lists' lengths (one 64-bit word), the claim counter, a pad word, then
+// the long and the short list.
 template <int W, bool EXT>
-int launch_w(const Args& a, cudaStream_t st) {
+int launch_w(const Args& a, int* work, cudaStream_t st) {
   constexpr int threads = 32 * WARPS_PER_BLOCK;
-  // the card's resident blocks of this instance (asked once)
-  static int sms = 0, per_sm = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_dp_kernel<W, EXT>, threads, 0);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return static_cast<int>(err);
-    }
-  }
-  // persistent grid: every resident warp, or one warp per slot when
-  // the rows hold fewer (the run count is not known on the host)
-  const long long want = (static_cast<long long>(a.B) * a.A + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  // the current card's resident blocks of the walk, asked on every launch
+  // (cheap next to the launch itself)
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_dp_kernel<W, EXT>, threads, 0);
+  if (err == cudaSuccess) err = cudaMemsetAsync(work, 0, 4 * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cells = a.B * ((a.A + 31) / 32);
+  auto* counts = reinterpret_cast<unsigned long long*>(work);
+  int* longs = work + 4;
+  int* shorts = longs + cells;
+  find_runs_kernel<EXT><<<(cells + 31) / 32, 1024, 0, st>>>(a, counts, longs, shorts);
+  // persistent grid: every resident warp, or one warp per chunk when the
+  // rows hold fewer (the list lengths are not known on the host)
+  const int want = (cells + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = want < resident ? static_cast<int>(want) : resident;
-  chain_dp_kernel<W, EXT><<<blocks, threads, 0, st>>>(a);
+  chain_dp_kernel<W, EXT><<<want < resident ? want : resident, threads, 0, st>>>(a, counts, longs, shorts,
+                                                                                  work + 2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool EXT>
-int launch(const Args& a, int window, void* stream) {
+int launch(const Args& a, int window, int* work, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (window) {
-    case 16: return launch_w<16, EXT>(a, st);
-    case 32: return launch_w<32, EXT>(a, st);
-    case 64: return launch_w<64, EXT>(a, st);
-    case 128: return launch_w<128, EXT>(a, st);
+    case 16: return launch_w<16, EXT>(a, work, st);
+    case 32: return launch_w<32, EXT>(a, work, st);
+    case 64: return launch_w<64, EXT>(a, work, st);
+    case 128: return launch_w<128, EXT>(a, work, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -399,31 +535,27 @@ int launch(const Args& a, int window, void* stream) {
 }  // namespace
 
 // Both entry points return the first CUDA error of the launch (0 on
-// success).  `order` (int64, B * A flat slots, the run starts longest
-// first) and `length` ([B, A] int32, each run's length at its start
-// slot, 0 elsewhere) are the run list that the wrapper builds from key2
-// and nvalid, and `next` one int32 that is 0 at launch; the kernel
-// itself does not read key2.
-extern "C" int chain_dp_skip_launch(const int* rpos, const int* qpos,
-                                    const int* valid, const int* nvalid,
-                                    const long long* order, const int* length, int* next,
+// success).  Rows are [B, A] int32, sorted by (key2, rpos) over
+// [0, nvalid); `work` is int32 scratch of 4 + 2 * B * ceil(A / 32)
+// entries, 8-byte aligned, that the launch initialises itself.
+extern "C" int chain_dp_skip_launch(const int* key2, const int* rpos, const int* qpos,
+                                    const int* valid, const int* nvalid, int* work,
                                     int B, int A, float pen_gap, int span,
                                     int max_gap, int bw, int max_skip, int window, int* f,
                                     int* broke, void* stream) {
-  const Args a{rpos, qpos, valid, nvalid, order, length, next, B, A, pen_gap, span, max_gap,
+  const Args a{key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap,
                bw, max_skip, f, broke, nullptr, nullptr, nullptr};
-  return launch<false>(a, window, stream);
+  return launch<false>(a, window, work, stream);
 }
 
 // The -F variant: also writes cnt, start and rmf ([B, A] int32 each).
-extern "C" int chain_dp_skip_ext_launch(const int* rpos, const int* qpos,
-                                        const int* valid, const int* nvalid,
-                                        const long long* order, const int* length, int* next,
+extern "C" int chain_dp_skip_ext_launch(const int* key2, const int* rpos, const int* qpos,
+                                        const int* valid, const int* nvalid, int* work,
                                         int B, int A, float pen_gap,
                                         int span, int max_gap, int bw, int max_skip,
                                         int window, int* f, int* broke, int* cnt, int* start,
                                         int* rmf, void* stream) {
-  const Args a{rpos, qpos, valid, nvalid, order, length, next, B, A, pen_gap, span, max_gap,
+  const Args a{key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap,
                bw, max_skip, f, broke, cnt, start, rmf};
-  return launch<true>(a, window, stream);
+  return launch<true>(a, window, work, stream);
 }

@@ -30,14 +30,14 @@ more): an anchor's outputs depend only on the earlier anchors of its
 own (rid, strand) run, because a predecessor with another ``key2`` is
 never ``ok`` (``chain_pallas.py:149``) and both the marked set
 (:164) and ``improving`` need ``ok``.  Rows are sorted by (key2, rpos),
-so each run is a contiguous slice and an independent DP.  The wrapper
-builds a work list of runs (:func:`run_worklist`: start slot and
-length, longest first) and the kernel's persistent warps take runs from
-it (the first wave spread over the blocks, then through an atomic
-counter), each run walked from an empty ring in registers with
-absolute slot indices.  The list has a fixed size, one entry per slot,
-so it is built without a host sync: one 8-bit sort of the run-length
-plane moves the runs to the front.
+so each run is a contiguous slice and an independent DP.  Each call
+launches two kernels: one warp per 32-slot chunk of a row finds the
+chunk's run starts with one ballot over ``key2``, writes the padding
+and lists the chunk as holding a long run (one that reaches the
+chunk's end) and/or short runs; then a persistent grid of warps walks
+every long run, then every short-run chunk, each run from an empty ring
+in registers with absolute slot indices.  The lists stay on the card:
+no host sync and no sort.
 
 What bounds it on an H100: the bytes are tiny (four int32 inputs and
 two outputs per anchor, five with ``extents``) and the roofline bound
@@ -116,13 +116,16 @@ def build_library() -> Path:
 def ptxas_report(so: Path) -> list[str]:
     """One line per kernel instance from the build's ``-Xptxas -v``
     output: ``W=32 EXT=0: 40 registers, 0 B stack, 0 B spill stores,
-    0 B spill loads``."""
+    0 B spill loads`` (``find_runs EXT=0: ...`` for the run finder)."""
     text = so.with_suffix(".ptxas.txt").read_text()
     out, name, frame = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\S*chain_dp_kernelILi(\d+)ELb([01])E", line)
         if m:
             name = f"W={m.group(1)} EXT={m.group(2)}"
+        m = re.search(r"Compiling entry function '\S*find_runs_kernelILb([01])E", line)
+        if m:
+            name = f"find_runs EXT={m.group(1)}"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             frame = f"{m.group(1)} B stack, {m.group(2)} B spill stores, {m.group(3)} B spill loads"
@@ -137,9 +140,9 @@ def ptxas_report(so: Path) -> list[str]:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # rpos, qpos, valid, nvalid, order, length, next, B, A, pen_gap,
-    # span, max_gap, bw, max_skip, window, outputs..., stream
-    head = [P, P, P, P, P, P, P, I, I, F, I, I, I, I, I]
+    # key2, rpos, qpos, valid, nvalid, work, B, A, pen_gap, span,
+    # max_gap, bw, max_skip, window, outputs..., stream
+    head = [P, P, P, P, P, P, I, I, F, I, I, I, I, I]
     lib.chain_dp_skip_launch.argtypes = head + [P, P, P]
     lib.chain_dp_skip_ext_launch.argtypes = head + [P, P, P, P, P, P]
     lib.chain_dp_skip_launch.restype = lib.chain_dp_skip_ext_launch.restype = I
@@ -190,32 +193,19 @@ def chain_dp_skip(
         raise ValueError(f"unsupported device {dev}")
     if B == 0 or A == 0:
         return tuple(torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(5 if extents else 2))
-    with torch.cuda.device(dev):
-        work = run_worklist(key2, nvalid)
-    return launch_runs(work, rpos, qpos, valid, nvalid, pen_gap, extents=extents, **kw)
-
-
-def launch_runs(work, rpos, qpos, valid, nvalid, pen_gap, *, span, max_gap, bw, max_skip, window, extents):
-    """Launch the kernel over the :func:`run_worklist` ``work`` of CUDA
-    ``[B, A]`` rows that :func:`chain_dp_skip` has checked (it counts the
-    launch in ``chain_dp_skip.launches`` or ``.ext_launches``); returns
-    the outputs of :func:`chain_dp_skip`."""
-    B, A = rpos.shape
-    dev = rpos.device
-    order, length = work
-    if order.dtype != torch.int64 or order.shape != (B * A,) or order.device != dev:
-        raise ValueError("work: expected the run_worklist of these rows")
-    _check("work length", length, (B, A), dev)
+    chunks = B * -(-A // 32)
+    if 32 * chunks >= 2**31:
+        raise ValueError(f"[{B}, {A}] rows exceed the kernel's int32 chunk lists")
     outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(5 if extents else 2)]
     with torch.cuda.device(dev):
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the chunk lists and their counters (the launch zeroes these)
+        work = torch.empty(4 + 2 * chunks, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
         launch = lib.chain_dp_skip_ext_launch if extents else lib.chain_dp_skip_launch
         err = launch(
-            rpos.data_ptr(), qpos.data_ptr(), valid.data_ptr(), nvalid.data_ptr(),
-            order.data_ptr(), length.data_ptr(), counter.data_ptr(), B, A,
-            float(np.float32(pen_gap)), span, max_gap, bw, max_skip, window,
+            key2.data_ptr(), rpos.data_ptr(), qpos.data_ptr(), valid.data_ptr(), nvalid.data_ptr(),
+            work.data_ptr(), B, A, float(np.float32(pen_gap)), span, max_gap, bw, max_skip, window,
             *(o.data_ptr() for o in outs), stream,
         )
     if err != 0:
@@ -229,31 +219,6 @@ def launch_runs(work, rpos, qpos, valid, nvalid, pen_gap, *, span, max_gap, bw, 
 
 chain_dp_skip.launches = 0  # the main path's variant
 chain_dp_skip.ext_launches = 0  # the extent (-F) variant
-
-
-def run_worklist(key2: torch.Tensor, nvalid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's work list: ``(order, length)``.  ``length`` ([B, A]
-    int32) holds each run's length at its start slot and 0 elsewhere; a
-    run is a maximal slice of equal ``key2`` within a row's ``[0,
-    nvalid)`` (the ``boundary2`` test of ``ops/overlap.py::
-    _reduce_counts``).  ``order`` ([B * A] int64) lists every flat slot
-    ``row * A + start``, the run starts first, longest first (lengths
-    past 255 tie), ties in row-major order.  It has a fixed size, one
-    entry per slot, and one 8-bit sort builds it, so no host sync sizes
-    it."""
-    B, A = key2.shape
-    dev = key2.device
-    n = nvalid.clamp(0, A).to(torch.int32)[:, None]
-    slots = torch.arange(A, dtype=torch.int32, device=dev)
-    starts = slots < n
-    starts[:, 1:] &= key2[:, 1:] != key2[:, :-1]
-    # a run ends at its row's next run start, or at the row's count
-    nxt = torch.where(starts, slots, A)
-    nxt = torch.cat([nxt[:, 1:], torch.full((B, 1), A, dtype=torch.int32, device=dev)], 1)
-    end = torch.minimum(torch.cummin(nxt.flip(1), dim=1).values.flip(1), n)
-    length = torch.where(starts, end - slots, 0)
-    _, order = torch.sort(length.clamp(max=255).to(torch.uint8).reshape(-1), descending=True, stable=True)
-    return order, length
 
 
 def _mg_log2(x: torch.Tensor) -> torch.Tensor:

@@ -4,13 +4,11 @@
   ``chain_dp_skip_plain`` left-aligned in a row of its own and scattered
   back, gives what the whole-row walk gives, bit for bit, for ``f``,
   ``broke``, ``cnt``, ``start`` and ``rmf`` at W = 16, 32, 64 and 128,
-  on a random corpus and on a colinear corpus whose runs fire the skip
-  break.  (The outputs are shift-invariant: the marked set uses only
-  ``(i - 1) - ring_p``.)
-* ``run_worklist`` (the kernel's work list) equals a numpy loop: starts,
-  lengths and longest-first order (lengths past 255 tie), with empty
-  rows, a row that is one run, ``nvalid = A``, and rows of one-anchor
-  runs.
+  on a random corpus, on a colinear corpus whose runs fire the skip
+  break, and on the edges of the kernel's 32-slot chunks (one run as
+  long as the row, one-anchor runs, runs of 31, 32 and 33 anchors that
+  start on and just before a chunk's edge, an empty row).  (The outputs
+  are shift-invariant: the marked set uses only ``(i - 1) - ring_p``.)
 
 Integer outputs throughout: tolerance 0.
 """
@@ -22,7 +20,7 @@ torch = pytest.importorskip("torch")
 # tiny per-op work: intra-op threads only contend with the other workers
 torch.set_num_threads(1)
 
-from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip_plain, run_worklist
+from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip_plain
 from lrge_tpu_torch.platform import AVA_ONT
 
 KW = dict(span=15, max_gap=AVA_ONT.max_gap, bw=AVA_ONT.bw, max_skip=25)
@@ -81,12 +79,35 @@ def colinear_rows(rng, B, A):
     return key2, rpos, qpos, valid
 
 
-@pytest.mark.parametrize("corpus", ["random", "colinear"])
+def chunk_edge_rows(rng, B, A):
+    """Row 0 is one colinear run as long as the row; row 1 is one-anchor
+    runs; rows 2.. hold colinear runs of 31, 32, 33 and 1 anchors in
+    turn, so runs start on a 32-slot chunk's edge, just before it and
+    inside it; the last row is empty."""
+    key2 = np.full((B, A), IMAX, np.int32)
+    base = np.arange(A) * 3
+    rpos = (base + rng.integers(0, 40, (B, A))).astype(np.int32)
+    qpos = (base + rng.integers(0, 40, (B, A))).astype(np.int32)
+    rpos.sort(axis=1)
+    valid = np.ones((B, A), np.int32)
+    key2[0] = 0
+    key2[1] = np.arange(A)
+    lens = np.tile([31, 32, 33, 1], A)
+    for b in range(2, B - 1):
+        key2[b] = np.repeat(np.arange(len(lens)), lens)[b - 2 : b - 2 + A]
+    valid[-1] = 0
+    return key2, rpos, qpos, valid
+
+
+CORPORA = {"random": random_rows, "colinear": colinear_rows, "chunk_edges": chunk_edge_rows}
+
+
+@pytest.mark.parametrize("corpus", list(CORPORA))
 @pytest.mark.parametrize("window", [16, 32, 64, 128])
 def test_runs_walked_alone_equal_the_row_walk(corpus, window):
-    rng = np.random.default_rng(window + (0 if corpus == "random" else 1000))
+    rng = np.random.default_rng(window + 1000 * list(CORPORA).index(corpus))
     B, A = 10, 240
-    key2, rpos, qpos, valid = (random_rows if corpus == "random" else colinear_rows)(rng, B, A)
+    key2, rpos, qpos, valid = CORPORA[corpus](rng, B, A)
     nvalid = (key2 != IMAX).sum(axis=1).astype(np.int32)
     t = torch.from_numpy
     kw = dict(KW, window=window, extents=True)
@@ -110,58 +131,29 @@ def test_runs_walked_alone_equal_the_row_walk(corpus, window):
     # the corpus reaches what the test is about: lone anchors, and runs
     # deeper than the ring (colinear) or than one warp's lanes
     assert sum(n == 1 for *_, n in runs) > 0
-    assert Lmax > (window if corpus == "colinear" else 32)
+    assert Lmax > (32 if corpus == "random" else window)
     assert (whole[2] > 1).any()
-    if corpus == "colinear" and window >= 64:
+    if corpus != "random" and window >= 64:
         assert whole[1].any(), "the colinear runs must fire the skip break"
 
 
-def worklist_runs(key2, nvalid):
-    """``run_worklist``'s runs as ``(row, start, length)``, in its order,
-    after checking that the run starts lead its fixed-size order and that
-    ``length`` is 0 off them."""
-    order, length = run_worklist(torch.from_numpy(key2), torch.from_numpy(nvalid))
-    B, A = key2.shape
-    assert order.dtype == torch.int64 and length.dtype == torch.int32
-    assert order.shape == (B * A,) and length.shape == (B, A)
-    assert sorted(order.tolist()) == list(range(B * A))
-    flat = length.reshape(-1)[order]
-    R = int((flat > 0).sum())
-    assert (flat[R:] == 0).all()
-    return [(int(o) // A, int(o) % A, int(n)) for o, n in zip(order[:R], flat[:R])]
+@pytest.mark.gpu
+@pytest.mark.parametrize("corpus", list(CORPORA))
+@pytest.mark.parametrize("window", [16, 32, 64, 128])
+def test_cuda_kernel_on_these_runs_matches_plain(corpus, window):
+    # the kernel finds the runs itself, in 32-slot chunks: both variants
+    # against the plain row walk on the corpora above
+    from lrge_tpu_torch.ops.chain_kernel import chain_dp_skip
 
-
-def test_worklist_equals_a_loop():
-    rng = np.random.default_rng(5)
-    B, A = 9, 64
-    key2 = np.sort(rng.integers(0, 6, (B, A)), axis=1).astype(np.int32)
-    nvalid = rng.integers(0, A + 1, B).astype(np.int32)
-    nvalid[0] = 0  # empty row
-    key2[1] = 3  # one run, the whole row
-    nvalid[1] = A
-    nvalid[2] = A  # several runs up to A
-    key2[3, :] = np.arange(A)  # one-anchor runs
-    nvalid[4] = A + 7  # counts past A clamp to A
-    got = worklist_runs(key2, nvalid)
-    want = runs_of(key2, nvalid)
-    want.sort(key=lambda r: -r[2])  # stable: ties stay row-major
-    assert got == want
-    assert got[0] == (1, 0, A) and sum(r[2] for r in want) == np.minimum(nvalid, A).sum()
-
-
-def test_worklist_ties_past_255():
-    # runs longer than 255 slots all lead, in row-major order among them
-    key2 = np.zeros((3, 600), np.int32)
-    key2[0, 300:] = 1  # runs of 300 and 300
-    nvalid = np.array([600, 400, 280], np.int32)
-    got = worklist_runs(key2, nvalid)
-    assert got == [(0, 0, 300), (0, 300, 300), (1, 0, 400), (2, 0, 280)]
-
-
-def test_worklist_edge_rows():
-    # no runs at all, and every slot its own run (no zero-length tail)
-    key2 = np.full((3, 16), IMAX, np.int32)
-    assert worklist_runs(key2, np.zeros(3, np.int32)) == []
-    key2 = np.arange(48, dtype=np.int32).reshape(3, 16)
-    got = worklist_runs(key2, np.full(3, 16, np.int32))
-    assert got == [(b, s, 1) for b in range(3) for s in range(16)]
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(window + 1000 * list(CORPORA).index(corpus))
+    rows = CORPORA[corpus](rng, 10, 240)
+    nvalid = (rows[0] != IMAX).sum(axis=1).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (*rows, nvalid)]
+    for extents in (False, True):
+        kw = dict(KW, window=window, extents=extents)
+        got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), **kw)
+        want = chain_dp_skip_plain(*args, AVA_ONT.chn_pen_gap(), **kw)
+        for name, g, w in zip(OUTS, got, want):
+            assert torch.equal(g.cpu(), w), (name, extents)

@@ -1,19 +1,23 @@
 """Where the device time of the main path's ``count_batch`` goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [-P {ont,pb}]
 
 Builds ``chip_smoke.py``'s phase-4 configuration (the synthetic 4.4 Mbp
-genome, 15,000 reads, seed 6, two-set ``-T 10000 -Q 5000``), warms the
-device engine up, times three warm ``count_batch`` passes over the
-5,000 queries with the host clock, then runs one more pass under
+genome, 15,000 reads, seed 6, two-set ``-T 10000 -Q 5000``; with ``-P
+pb`` its phase-8 PacBio/HPC run on the same corpus), warms the device
+engine up, times three warm ``count_batch`` passes over the 5,000
+queries with the host clock, then runs one more pass under
 ``torch.profiler`` and prints the wall of that pass, the device time by
 kernel (the top 15, and the chain DP's own kernels), the device's idle
 share (1 - summed kernel time / wall) and the chain DP's launches in
-the pass.  Without CUDA it exits 1.
+the pass.  Under ``-P pb`` it also times the host sketch of the same
+queries (``_pb_planes``, which the pass runs per super-batch).  Without
+CUDA it exits 1.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -33,7 +37,11 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("-P", "--platform", choices=("ont", "pb"), default="ont",
+                    help="the preset of the profiled run (default %(default)s)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
     from torch.autograd import DeviceType
@@ -41,7 +49,12 @@ def main() -> int:
 
     from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.ops import chain_kernel as ck
+    from lrge_tpu_torch.ops.overlap import minimizer_cap
+    from lrge_tpu_torch.platform import Platform
     from lrge_tpu_torch.strategy import TwoSetStrategy
+
+    platform = Platform.PACBIO if args.platform == "pb" else Platform.NANOPORE
+    counter = cs.COUNTERS["span" if platform == Platform.PACBIO else "main"]
 
     gpu_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -53,7 +66,8 @@ def main() -> int:
         tmp = Path(tmp)
         fq = tmp / "reads.fq"
         cs.write_corpus(fq, cs.READS)
-        strat = TwoSetStrategy(fq, target_num_reads=cs.T, query_num_reads=cs.Q, seed=cs.SEED, tmpdir=tmp)
+        strat = TwoSetStrategy(fq, target_num_reads=cs.T, query_num_reads=cs.Q, seed=cs.SEED, tmpdir=tmp,
+                               platform=platform)
         targets, queries, _ = strat.split_fastq()
         engine = device_engine.DeviceOverlapEngine(strat._build_engine(targets).index, device=dev)
         names = [n for n, _ in queries]
@@ -65,14 +79,19 @@ def main() -> int:
             engine.count_batch(names, seqs)
             t = time.perf_counter() - t0
             print(f"[profile] warm pass {i}: {t:.4f} s, {len(seqs) / t:.1f} q/s", flush=True)
-        ck.chain_dp_skip.launches = 0
+        if engine.pb_mode:
+            t0 = time.perf_counter()
+            engine._pb_planes(seqs, minimizer_cap(max(engine.length_buckets)))
+            print(f"[profile] host sketch of the {len(seqs)} queries (_pb_planes): "
+                  f"{time.perf_counter() - t0:.4f} s", flush=True)
+        setattr(ck.chain_dp_skip, counter, 0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.count_batch(names, seqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    launches = ck.chain_dp_skip.launches
+    launches = getattr(ck.chain_dp_skip, counter)
     # device-side events only (the kernels), so no time counts twice
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     kernels.sort(key=device_us, reverse=True)

@@ -1,23 +1,26 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--pb-ava-reads N]
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the chain DP kernel (both variants) from
+2. build the chain DP kernel (all three variants) from
    ``lrge_tpu_torch/csrc/chain_dp.cu`` and print each instance's
    registers, stack and spill (``-Xptxas -v``);
 3. each variant against its plain PyTorch version on the card, at the
    main path's shapes ([512, 4096] and [1024, 2048] anchors, W = 32),
-   on a colinear skip-break corpus (W = 64) and, once phase 4 has built
-   its index, on the main path's own anchors (one phase-4 super-batch
-   through the port's sketch, lookup, expansion and sort): ``f`` and
-   ``broke``, and for the extent variant also ``cnt``, ``start`` and
-   ``rmf``, must be bit-equal (tolerance 0, integer outputs).  Each case
-   prints its run-length distribution, the time of ``chain_dp_skip`` as
-   the main path calls it, the plain version's time and the bound; one
-   run of 4,096 anchors alone gives the per-anchor step latency;
+   on a colinear skip-break corpus (W = 64) and, once phase 4 (phase 8
+   for the span variant) has built its index, on that path's own
+   anchors (one super-batch of its fullest bucket through the port's
+   sketch or host planes, lookup, expansion and sort): ``f`` and
+   ``broke``, for the extent variant also ``cnt``, ``start`` and
+   ``rmf``, for the span variant (anchors with spans of 19-60, packed
+   into ``qpos``) also ``cnt``, must be bit-equal (tolerance 0, integer
+   outputs).  Each case prints its run-length distribution, the time of
+   ``chain_dp_skip`` as the path calls it, the plain version's time and
+   the bound; one run of 4,096 anchors alone gives the per-anchor step
+   latency;
 4. the main path: ``lrge_tpu_torch.cli.main`` on a synthetic 4.4 Mbp
    genome (15,000 reads, mean 2.5 kb, 5% errors, seed 6) at the
    published run shape ``-T 10000 -Q 5000``, with ``--engine auto``,
@@ -34,17 +37,25 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 7. ``-n 25000`` (all-vs-all at the reference's default) through the CLI
    on 26,000 reads from the same genome, then the all-vs-all engine
    alone: a timed pair-list pass and a ``-F`` pass, 300 rows each held
+   against the host;
+8. the PacBio/HPC preset (``-P pb``) on phase 4's corpus and run shape
+   through the CLI (its estimate must equal the host engine's), then a
+   timed pass of its engine, a ``--use-min-ref`` pair-list pass, and an
+   all-vs-all pair-list pass on the first 5,000 reads of phase 7's
+   subsample (``--pb-ava-reads`` sets the count), 300 rows each held
    against the host.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
-and must launch the kernel variant of its path (counts reset just
-before it, read just after).  The line before the last is the kernels'
-JSON record; the last line is ``{"ok": true, "device": {...}}``.
-Without CUDA it exits 1 and prints no result.
+and must launch the kernel variant of its path, and each engine pass
+too (counts reset just before it, read just after).  Each phase prints
+its wall time.  The line before the last is the kernels' JSON record;
+the last line is ``{"ok": true, "device": {...}}``.  Without CUDA it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
@@ -61,6 +72,7 @@ SEED = 6
 GENOME = 4_400_000  # bp of the synthetic genome
 READS, T, Q = 15_000, 10_000, 5_000  # two-set corpus and run shape
 AVA_READS, AVA_N = 26_000, 25_000  # all-vs-all corpus and -n
+PB_AVA_READS = 5_000  # phase 8's all-vs-all rows (the first of phase 7's subsample)
 SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # the synthetic cases' gap penalty (the main path's is the preset's)
@@ -73,6 +85,10 @@ IMAX = np.iinfo(np.int32).max
 OPS_PER_CANDIDATE = 75
 PEAK_OPS = 67e12  # H100 SXM, float32 outside the tensor cores (op/s)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (B/s)
+# each kernel variant's launch counter on ops/chain_kernel.py::chain_dp_skip
+COUNTERS = {"main": "launches", "ext": "ext_launches", "span": "span_launches"}
+# and its tag in the printed lines
+TAGS = {"main": "kernel", "ext": "kernel ext", "span": "kernel span"}
 
 
 def fail(msg: str):
@@ -80,9 +96,11 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def anchor_rows(rng, B, A, *, colinear=False, n_rids=40, n_min=None):
+def anchor_rows(rng, B, A, *, colinear=False, n_rids=40, n_min=None, spans=False):
     """Rows of anchors sorted by (rid*2+strand, rpos), valid prefix per
-    row of ``n_min`` (default ``A // 4``) to ``A - 1`` anchors."""
+    row of ``n_min`` (default ``A // 4``) to ``A - 1`` anchors; with
+    ``spans``, ``qpos`` packs a span of 19-60 per anchor (``qpos << 8 |
+    span``, the PacBio/HPC range)."""
     key2 = np.full((B, A), IMAX, np.int32)
     rpos = np.zeros((B, A), np.int32)
     qpos = np.zeros((B, A), np.int32)
@@ -102,20 +120,22 @@ def anchor_rows(rng, B, A, *, colinear=False, n_rids=40, n_min=None):
             qp = rng.integers(0, 3 * A, n)
             o = np.lexsort((rp, st, rid))
             k, rp, qp = (rid * 2 + st)[o], rp[o], qp[o]
+        if spans:
+            qp = (qp << 8) | rng.integers(19, 61, n)
         key2[b, :n], rpos[b, :n], qpos[b, :n], valid[b, :n] = k, rp, qp, 1
     return key2, rpos, qpos, valid
 
 
-def chain_bound(lens, B, A, W, extents):
+def chain_bound(lens, B, A, W, n_out):
     """Least time (ms) the card could take for the chain DP on these
     inputs, and what binds it: operations (each anchor against its
     min(depth, W) in-run predecessors) at ``PEAK_OPS``, or bytes (four
-    input planes over the valid anchors and ``nvalid`` read once, two or
-    five [B, A] output planes written once) at ``PEAK_BYTES``."""
+    input planes over the valid anchors and ``nvalid`` read once,
+    ``n_out`` [B, A] output planes written once) at ``PEAK_BYTES``."""
     n = lens.astype(np.int64)
     cand = np.where(n <= W + 1, n * (n - 1) // 2, W * (W + 1) // 2 + (n - 1 - W) * W).sum()
     t_ops = OPS_PER_CANDIDATE * cand / PEAK_OPS * 1e3
-    t_bytes = (16 * n.sum() + 4 * B + 4 * (5 if extents else 2) * B * A) / PEAK_BYTES * 1e3
+    t_bytes = (16 * n.sum() + 4 * B + 4 * n_out * B * A) / PEAK_BYTES * 1e3
     return (float(t_ops), "operations") if t_ops >= t_bytes else (float(t_bytes), "bytes")
 
 
@@ -160,10 +180,12 @@ def kernel_case(ck, tag, name, arrs, W, kw, pen_gap=PEN_GAP):
     want = ck.chain_dp_skip_plain(*args, window=W, **kw)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
+    if len(got) != len(want):
+        fail(f"chain kernel ({tag}) returned {len(got)} planes, its plain version {len(want)}")
     err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
     lens = run_lengths(key2, nvalid)
-    bound_ms, bound_by = chain_bound(lens, B, A, W, kw["extents"])
-    extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if kw["extents"] else ""
+    bound_ms, bound_by = chain_bound(lens, B, A, W, len(got))
+    extra = f", chains of > 1 anchor {int((want[2] > 1).sum())}" if len(want) > 2 else ""
     print(f"[{tag}] {name} [{B}, {A}] W={W}: runs {len(lens)} ({len(lens) / B:.1f} a row), run length "
           f"max {lens.max()} p99 {np.percentile(lens, 99):.0f} median {np.median(lens):.0f}; kernel "
           f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bound_ms:.4f} ms "
@@ -174,25 +196,32 @@ def kernel_case(ck, tag, name, arrs, W, kw, pen_gap=PEN_GAP):
                 max_abs_err=err, max_run=int(lens.max()), broke=int(want[1].sum()))
 
 
-def kernel_vs_plain(ck, dev, extents=False):
-    """Phase 3's synthetic cases for one variant, and the per-anchor step
-    latency (one run of 4,096 anchors alone, W = 32); returns
-    ``{case: record}``."""
+def variant_of(mode) -> str:
+    """The kernel variant that ``chain_dp_skip(**mode)`` launches."""
+    return "ext" if mode.get("extents") else "span" if mode.get("spans") else "main"
+
+
+def kernel_vs_plain(ck, dev, **mode):
+    """Phase 3's synthetic cases for one variant (``mode``: ``extents`` or
+    ``spans``, else the main one), and the per-anchor step latency (one
+    run of 4,096 anchors alone, W = 32); returns ``{case: record}``."""
     # the break needs more than max_skip marked predecessors in view, so
     # the colinear corpus runs at W = 64
     cases = [("main_4096", 512, 4096, 32, False), ("main_2048", 1024, 2048, 32, False),
              ("colinear", 256, 1024, 64, True)]
-    tag = "kernel ext" if extents else "kernel"
-    kw = dict(KW, extents=extents)
+    tag = TAGS[variant_of(mode)]
+    kw = dict(KW, **mode)
+    spans = bool(mode.get("spans"))
     recs = {}
     for name, B, A, W, colinear in cases:
         rng = np.random.default_rng(SEED + B)
-        arrs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A, colinear=colinear)]
+        arrs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A, colinear=colinear, spans=spans)]
         recs[name] = kernel_case(ck, tag, name, arrs, W, kw)
         if colinear and not recs[name]["broke"]:
             fail("the colinear corpus must fire the skip break")
     rng = np.random.default_rng(SEED)
-    arrs = [torch.from_numpy(a[:1]).to(dev) for a in anchor_rows(rng, 1, 4097, colinear=True, n_min=4096)]
+    arrs = [torch.from_numpy(a[:1]).to(dev)
+            for a in anchor_rows(rng, 1, 4097, colinear=True, n_min=4096, spans=spans)]
     nvalid = arrs[3].sum(dim=1).to(torch.int32)
     step_ms = cuda_ms(lambda: ck.chain_dp_skip(*arrs, nvalid, PEN_GAP, window=32, **kw))
     recs["step_us"] = step_ms * 1e3 / int(nvalid[0])
@@ -201,29 +230,39 @@ def kernel_vs_plain(ck, dev, extents=False):
     return recs
 
 
-def main_path_case(ck, engine, names, seqs, recs, extents=False):
-    """Phase 3's fourth case: the chain DP's inputs of one phase-4 super-
-    batch (the first of the bucket with most rows) as the main path
-    builds them, through both variants; adds ``"main_path"`` to
+def main_path_case(ck, engine, names, seqs, recs, **mode):
+    """Phase 3's fourth case: the chain DP's inputs of one super-batch of
+    ``engine``'s path (the first of the bucket with most rows) as the
+    path builds them (ONT: the device sketch; PacBio: the host planes),
+    through the variant that ``mode`` names; adds ``"main_path"`` to
     ``recs`` and prints the critical-path floor (longest run x the step
     latency)."""
-    from lrge_tpu_torch.ops.overlap import pack2bit_host, sketch_anchors
+    from lrge_tpu_torch.ops.overlap import minimizer_cap, pack2bit_host, pb_anchors, sketch_anchors
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
     L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
     dual, selfr = engine.query_ranks(names)
-    _, A, codes, lengths, _, dual_b, selfr_b = next(engine.super_batches(L, bucket_rows[L], seqs, dual, selfr))
+    _, A, codes, lengths, ids, dual_b, selfr_b = next(engine.super_batches(L, bucket_rows[L], seqs, dual, selfr))
     put = lambda a: torch.from_numpy(a).to(engine.device)
-    key2, rpos, qpos, valid = sketch_anchors(
-        put(pack2bit_host(codes)), put(lengths), put(dual_b), put(selfr_b), engine.gdev,
-        engine.params, num_anchors=A,
-    )
+    if engine.pb_mode:
+        planes = engine._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
+        qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
+        key2, rpos, qpos, valid = pb_anchors(
+            qhi, qlo, mps, put(lengths), put(dual_b), put(selfr_b), engine.gdev, engine.params, num_anchors=A,
+        )
+        name = f"pacbio main_path (bucket L={L})"
+    else:
+        key2, rpos, qpos, valid = sketch_anchors(
+            put(pack2bit_host(codes)), put(lengths), put(dual_b), put(selfr_b), engine.gdev,
+            engine.params, num_anchors=A,
+        )
+        name = f"main_path (bucket L={L})"
     i32 = lambda x: x.to(torch.int32).contiguous()
-    tag = "kernel ext" if extents else "kernel"
+    tag = TAGS[variant_of(mode)]
     p = engine.params
-    kw = dict(span=p.k, max_gap=p.max_gap, bw=p.bw, max_skip=p.max_chain_skip, extents=extents)
-    rec = kernel_case(ck, tag, f"main_path (bucket L={L})", [i32(x) for x in (key2, rpos, qpos, valid)],
-                      engine.window, kw, pen_gap=p.chn_pen_gap())
+    kw = dict(span=p.k, max_gap=p.max_gap, bw=p.bw, max_skip=p.max_chain_skip, **mode)
+    rec = kernel_case(ck, tag, name, [i32(x) for x in (key2, rpos, qpos, valid)], engine.window, kw,
+                      pen_gap=p.chn_pen_gap())
     print(f"[{tag}] main_path critical-path floor: longest run {rec['max_run']} x "
           f"{recs['step_us']:.4f} us = {rec['max_run'] * recs['step_us'] / 1e3:.4f} ms", flush=True)
     recs["main_path"] = rec
@@ -278,39 +317,47 @@ class _Records(logging.Handler):
 LOGGED = "Using device overlap engine on cuda"
 
 
-def run_cli(ck, tag, args, out, gpu_line, *, needle="", ext=False, host_equal=False):
-    """One CLI path with ``--engine auto``: both kernel counts are set to 0
+def reset_counts(ck):
+    for attr in COUNTERS.values():
+        setattr(ck.chain_dp_skip, attr, 0)
+
+
+def read_counts(ck) -> dict:
+    return {v: getattr(ck.chain_dp_skip, attr) for v, attr in COUNTERS.items()}
+
+
+def run_cli(ck, tag, args, out, gpu_line, *, needle="", variant="main", host_equal=False):
+    """One CLI path with ``--engine auto``: every kernel count is set to 0
     just before it and read just after.  It must log the device engine
     (a line starting with ``LOGGED`` and holding ``needle``), launch its
-    kernel variant, and print a finite estimate within 25% of the
+    kernel ``variant``, and print a finite estimate within 25% of the
     genome, or with ``host_equal`` the estimate that the same command
     prints on the exact host engine (``-F``: the reference's filter
     drops most true overlaps, so its estimate is not the genome size).
-    Returns ``(launches, ext_launches)``."""
+    Returns the launches by variant."""
     from lrge_tpu_torch import cli
 
     records = _Records()
     lg = logging.getLogger("lrge")
     lg.addHandler(records)
     lg.setLevel(logging.INFO)
-    ck.chain_dp_skip.launches = 0
-    ck.chain_dp_skip.ext_launches = 0
+    reset_counts(ck)
     t0 = time.perf_counter()
     try:
         rc = cli.main([*args, "-s", str(SEED), "-o", str(out)])
     finally:
         wall = time.perf_counter() - t0
-        launches, ext_launches = ck.chain_dp_skip.launches, ck.chain_dp_skip.ext_launches
+        counts = read_counts(ck)
         lg.removeHandler(records)
     if rc != 0:
         fail(f"[{tag}] cli.main returned {rc}")
     if not any(m.startswith(LOGGED) and needle in m for m in records.messages):
         fail(f"[{tag}] --engine auto did not resolve to the device engine")
-    if (ext_launches if ext else launches) <= 0:
-        fail(f"[{tag}] the path never launched the chain kernel{' (extent variant)' if ext else ''}")
+    if counts[variant] <= 0:
+        fail(f"[{tag}] the path never launched the chain kernel's {variant} variant")
     est = float(out.read_text())
-    print(f"[{tag}] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches {launches}, "
-          f"extent-variant launches {ext_launches} ({gpu_line})", flush=True)
+    print(f"[{tag}] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches by variant {counts} "
+          f"({gpu_line})", flush=True)
     if not np.isfinite(est):
         fail(f"[{tag}] estimate {est} is not finite")
     if host_equal:
@@ -324,31 +371,32 @@ def run_cli(ck, tag, args, out, gpu_line, *, needle="", ext=False, host_equal=Fa
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
     elif abs(est - GENOME) / GENOME > 0.25:
         fail(f"[{tag}] estimate {est} is not within 25% of the {GENOME:,} bp genome")
-    return launches, ext_launches
+    return counts
 
 
 def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     """One warm ``count_batch`` pass, timed, with fresh fallback tallies;
-    a ``-F`` pass (``filter_ratio`` set) must launch the extent variant
-    (its count set to 0 just before the pass, read just after).  Returns
-    ``(result, pair dict or None, report)``."""
+    it must launch its path's kernel variant (extent under ``-F``, span
+    under PacBio; every count set to 0 just before the pass, read just
+    after).  Returns ``(result, pair dict or None, report)``."""
     from lrge_tpu_torch.ops import chain_kernel as ck
 
+    variant = "ext" if kw.get("filter_ratio") is not None else "span" if engine.pb_mode else "main"
     engine.fallback_triggers.clear()
     collected = {} if pairs else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.chain_dp_skip.ext_launches = 0
+    reset_counts(ck)
     t0 = time.perf_counter()
     res = engine.count_batch(names, seqs, collect_pairs=collected, **kw)
     t = time.perf_counter() - t0
-    ext_launches = ck.chain_dp_skip.ext_launches
-    if kw.get("filter_ratio") is not None and ext_launches <= 0:
-        fail(f"[{tag}] the -F pass never launched the extent variant of the chain kernel")
+    counts = read_counts(ck)
+    if counts[variant] <= 0:
+        fail(f"[{tag}] the pass never launched the chain kernel's {variant} variant")
     peak = torch.cuda.max_memory_allocated()
     report = (f"{len(seqs) / t:.1f} q/s ({t:.3f} s for {len(seqs)} rows), fallback_rows "
               f"{res.fallback_rows}, fallback_triggers {dict(engine.fallback_triggers)}, peak device "
-              f"memory {peak / 2**20:.1f} MiB, extent-variant launches {ext_launches}")
+              f"memory {peak / 2**20:.1f} MiB, kernel launches by variant {counts}")
     return res, collected, report
 
 
@@ -374,97 +422,157 @@ def check_sample(tag, engine, names, seqs, res, pairs, filter_ratio=None, filter
     print(f"[{tag}] {SAMPLE} sampled rows equal the host engine's", flush=True)
 
 
-def twoset_paths(ck, dev, gpu_line, recs, recs_ext):
-    """Phases 4-6 on the 15,000-read corpus at ``-T 10000 -Q 5000``, with
-    phase 3's main-path case of both variants (into ``recs`` and
-    ``recs_ext``) once the index is built; returns the main path's and
-    the ``-F`` path's launch counts."""
+def device_engine_on_card(index, dev):
+    """The port's device engine over ``index``; fails unless its planes
+    were built (``from_host`` logs why not) and all lie on the card."""
+    from lrge_tpu_torch.device_engine import DeviceOverlapEngine
+
+    engine = DeviceOverlapEngine(index, device=dev)
+    if not engine.device_ok:
+        fail("the device engine has no index planes (see the log)")
+    planes = [v for v in vars(engine.gdev).values() if isinstance(v, torch.Tensor)]
+    if not planes or any(p.device.type != "cuda" for p in planes):
+        fail("index planes are not on the card")
+    return engine
+
+
+def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
+    """Phases 4-6 on the 15,000-read corpus ``fq`` at ``-T 10000 -Q
+    5000``, with phase 3's main-path case of both constant-span variants
+    (into ``recs`` and ``recs_ext``) once the index is built; returns the
+    CLI launch counts of the main path and of the ``-F`` path."""
     from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
-        tmp = Path(tmp)
-        fq = tmp / "reads.fq"
-        t0 = time.perf_counter()
-        write_corpus(fq, READS)
-        print(f"[main] corpus: {time.perf_counter() - t0:.1f} s", flush=True)
-        shape = [str(fq), "-T", str(T), "-Q", str(Q)]
-        launches, _ = run_cli(ck, "main", shape, tmp / "est.txt", gpu_line)
+    tmp = fq.parent
+    shape = [str(fq), "-T", str(T), "-Q", str(Q)]
+    launches = run_cli(ck, "main", shape, tmp / "est.txt", gpu_line)
 
-        # the same index and queries as the CLI run (same seed and split)
-        strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp)
-        targets, queries, _ = strat.split_fastq()
-        index = strat._build_engine(targets).index
-        engine = device_engine.DeviceOverlapEngine(index, device=dev)
-        planes = [v for v in vars(engine.gdev).values() if isinstance(v, torch.Tensor)]
-        if not planes or any(p.device.type != "cuda" for p in planes):
-            fail("index planes are not on the card")
-        names = [n for n, _ in queries]
-        seqs = [s for _, s in queries]
-        main_path_case(ck, engine, names, seqs, recs)
-        main_path_case(ck, engine, names, seqs, recs_ext, extents=True)
-        engine.warmup([len(s) for s in seqs])
-        res, _, report = timed_pass("main", engine, names, seqs)
-        check_sample("main", engine, names, seqs, res, None)
-        print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
+    # the same index and queries as the CLI run (same seed and split)
+    strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp / "ont")
+    targets, queries, _ = strat.split_fastq()
+    engine = device_engine_on_card(strat._build_engine(targets).index, dev)
+    names = [n for n, _ in queries]
+    seqs = [s for _, s in queries]
+    main_path_case(ck, engine, names, seqs, recs)
+    main_path_case(ck, engine, names, seqs, recs_ext, extents=True)
+    engine.warmup([len(s) for s in seqs])
+    res, _, report = timed_pass("main", engine, names, seqs)
+    check_sample("main", engine, names, seqs, res, None)
+    print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
 
-        # phase 5: -F on the same run shape
-        _, ext_launches = run_cli(
-            ck, "filter", [*shape, "-F"], tmp / "est_f.txt", gpu_line, needle="with -F filtering", ext=True,
-            host_equal=True,
-        )
-        engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
-        res, _, report = timed_pass("filter", engine, names, seqs, filter_ratio=0.2)
-        check_sample("filter", engine, names, seqs, res, None, filter_ratio=0.2)
-        print(f"[filter] engine: {report} ({gpu_line})", flush=True)
+    # phase 5: -F on the same run shape
+    ext_launches = run_cli(
+        ck, "filter", [*shape, "-F"], tmp / "est_f.txt", gpu_line, needle="with -F filtering", variant="ext",
+        host_equal=True,
+    )
+    engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
+    res, _, report = timed_pass("filter", engine, names, seqs, filter_ratio=0.2)
+    check_sample("filter", engine, names, seqs, res, None, filter_ratio=0.2)
+    print(f"[filter] engine: {report} ({gpu_line})", flush=True)
 
-        # phase 6: --use-min-ref (index the queries, stream the targets)
-        run_cli(ck, "inverse", [*shape, "--use-min-ref"], tmp / "est_i.txt", gpu_line, needle="for --use-min-ref")
-        if not strat.target_num_bases > strat.query_num_bases:
-            fail("the inverse direction must engage: target bases <= query bases")
-        inv = device_engine.DeviceOverlapEngine(strat._build_engine(queries).index, device=dev)
-        tnames = [n for n, _ in targets]
-        tseqs = [s for _, s in targets]
-        inv.warmup([len(s) for s in tseqs], want_pairs=True)
-        res, pairs, report = timed_pass("inverse", inv, tnames, tseqs, pairs=True)
-        check_sample("inverse", inv, tnames, tseqs, res, pairs)
-        print(f"[inverse] engine: {report} ({gpu_line})", flush=True)
-        mode = dict(filter_ratio=0.2, filter_mode="overhang")
-        inv.warmup([len(s) for s in tseqs], want_pairs=True, **mode)
-        res, pairs, report = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
-        check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
-        print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
-        return launches, ext_launches
+    # phase 6: --use-min-ref (index the queries, stream the targets)
+    run_cli(ck, "inverse", [*shape, "--use-min-ref"], tmp / "est_i.txt", gpu_line, needle="for --use-min-ref")
+    if not strat.target_num_bases > strat.query_num_bases:
+        fail("the inverse direction must engage: target bases <= query bases")
+    inv = device_engine_on_card(strat._build_engine(queries).index, dev)
+    tnames = [n for n, _ in targets]
+    tseqs = [s for _, s in targets]
+    inv.warmup([len(s) for s in tseqs], want_pairs=True)
+    res, pairs, report = timed_pass("inverse", inv, tnames, tseqs, pairs=True)
+    check_sample("inverse", inv, tnames, tseqs, res, pairs)
+    print(f"[inverse] engine: {report} ({gpu_line})", flush=True)
+    mode = dict(filter_ratio=0.2, filter_mode="overhang")
+    inv.warmup([len(s) for s in tseqs], want_pairs=True, **mode)
+    res, pairs, report = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
+    check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
+    print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
+    return launches["main"], ext_launches["ext"]
 
 
-def ava_path(ck, dev, gpu_line):
-    """Phase 7: ``-n 25000`` on 26,000 reads of the same genome, then the
-    all-vs-all engine alone (pairs, and pairs under ``-F``)."""
-    from lrge_tpu_torch import device_engine
+def ava_path(ck, dev, gpu_line, fq):
+    """Phase 7: ``-n 25000`` on the 26,000 reads of ``fq``, then the
+    all-vs-all engine alone (pairs, and pairs under ``-F``); returns the
+    subsample."""
     from lrge_tpu_torch.strategy import AvaStrategy
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
-        tmp = Path(tmp)
-        fq = tmp / "reads.fq"
-        write_corpus(fq, AVA_READS)
-        run_cli(ck, "ava", [str(fq), "-n", str(AVA_N)], tmp / "est.txt", gpu_line)
-        strat = AvaStrategy(fq, num_reads=AVA_N, seed=SEED, tmpdir=tmp)
-        reads, _ = strat.subsample_reads()
-        names = [n for n, _ in reads]
-        seqs = [s for _, s in reads]
-        engine = device_engine.DeviceOverlapEngine(strat._build_engine(reads).index, device=dev)
-        lens = [len(s) for s in seqs]
-        engine.warmup(lens, want_pairs=True)
-        res, pairs, report = timed_pass("ava", engine, names, seqs, pairs=True)
-        check_sample("ava", engine, names, seqs, res, pairs)
-        print(f"[ava] engine: {report} ({gpu_line})", flush=True)
-        engine.warmup(lens, filter_ratio=0.2, want_pairs=True)
-        res, pairs, report = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
-        check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
-        print(f"[ava -F] engine: {report} ({gpu_line})", flush=True)
+    tmp = fq.parent
+    run_cli(ck, "ava", [str(fq), "-n", str(AVA_N)], tmp / "est_ava.txt", gpu_line)
+    strat = AvaStrategy(fq, num_reads=AVA_N, seed=SEED, tmpdir=tmp / "ava")
+    reads, _ = strat.subsample_reads()
+    names = [n for n, _ in reads]
+    seqs = [s for _, s in reads]
+    engine = device_engine_on_card(strat._build_engine(reads).index, dev)
+    lens = [len(s) for s in seqs]
+    engine.warmup(lens, want_pairs=True)
+    res, pairs, report = timed_pass("ava", engine, names, seqs, pairs=True)
+    check_sample("ava", engine, names, seqs, res, pairs)
+    print(f"[ava] engine: {report} ({gpu_line})", flush=True)
+    engine.warmup(lens, filter_ratio=0.2, want_pairs=True)
+    res, pairs, report = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
+    check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
+    print(f"[ava -F] engine: {report} ({gpu_line})", flush=True)
+    return reads
 
 
-def main() -> int:
+def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
+    """Phase 8: ``-P pb`` on phase 4's corpus ``fq`` and run shape through
+    the CLI (estimate equal to the host engine's: with k = 19 and HPC,
+    5% substitutions need not land within 25% of the genome), phase 3's
+    main-path case of the span variant (into ``recs_span``), then the
+    PacBio engine alone: a timed pass, a ``--use-min-ref`` pair-list
+    pass, and an all-vs-all pair-list pass over ``ava_reads``; returns
+    the CLI's span-variant launches."""
+    from lrge_tpu_torch.platform import Platform, preset_for
+    from lrge_tpu_torch.strategy import TwoSetStrategy
+    from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
+
+    tmp = fq.parent
+    shape = [str(fq), "-T", str(T), "-Q", str(Q), "-P", "pb"]
+    launches = run_cli(ck, "pacbio", shape, tmp / "est_pb.txt", gpu_line, variant="span", host_equal=True)
+
+    strat = TwoSetStrategy(
+        fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp / "pb", platform=Platform.PACBIO,
+    )
+    targets, queries, _ = strat.split_fastq()
+    engine = device_engine_on_card(strat._build_engine(targets).index, dev)
+    if not (engine.pb_mode and engine.gdev.wide):
+        fail("-P pb must build the wide-key device index")
+    names = [n for n, _ in queries]
+    seqs = [s for _, s in queries]
+    main_path_case(ck, engine, names, seqs, recs_span, spans=True)
+    engine.warmup([len(s) for s in seqs])
+    res, _, report = timed_pass("pacbio", engine, names, seqs)
+    check_sample("pacbio", engine, names, seqs, res, None)
+    print(f"[pacbio] engine: {report} ({gpu_line})", flush=True)
+
+    # --use-min-ref: index the queries, stream the targets with pair lists
+    inv = device_engine_on_card(strat._build_engine(queries).index, dev)
+    tnames = [n for n, _ in targets]
+    tseqs = [s for _, s in targets]
+    inv.warmup([len(s) for s in tseqs], want_pairs=True)
+    res, pairs, report = timed_pass("pacbio inverse", inv, tnames, tseqs, pairs=True)
+    check_sample("pacbio inverse", inv, tnames, tseqs, res, pairs)
+    print(f"[pacbio inverse] engine: {report} ({gpu_line})", flush=True)
+
+    # all-vs-all on the first rows of phase 7's subsample
+    names = [n for n, _ in ava_reads]
+    seqs = [s for _, s in ava_reads]
+    t0 = time.perf_counter()
+    ava = device_engine_on_card(build_engine_no_fork(ava_reads, preset_for(Platform.PACBIO, dual=False)).index, dev)
+    print(f"[pacbio ava] index and planes of {len(seqs)} reads: {time.perf_counter() - t0:.1f} s", flush=True)
+    ava.warmup([len(s) for s in seqs], want_pairs=True)
+    res, pairs, report = timed_pass("pacbio ava", ava, names, seqs, pairs=True)
+    check_sample("pacbio ava", ava, names, seqs, res, pairs)
+    print(f"[pacbio ava] engine: {report} ({gpu_line})", flush=True)
+    return launches["span"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
+                    help="phase 8's all-vs-all rows, the first of phase 7's subsample (default %(default)s)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     from lrge_tpu_torch.ops import chain_kernel as ck
@@ -475,21 +583,41 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(gpu_line, flush=True)
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
+
+    def phase_done(what):
+        nonlocal t0
+        print(f"[wall] {what}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+
     so = ck.build_library()
     ck._lib()
     print(f"[build] {so.name}: {time.perf_counter() - t0:.2f} s", flush=True)
     for line in ck.ptxas_report(so):
         print(f"[build] {line}", flush=True)
+    phase_done("phase 2, build")
 
     recs = kernel_vs_plain(ck, dev)
     recs_ext = kernel_vs_plain(ck, dev, extents=True)
-    launches, ext_launches = twoset_paths(ck, dev, gpu_line, recs, recs_ext)
-    ava_path(ck, dev, gpu_line)
+    recs_span = kernel_vs_plain(ck, dev, spans=True)
+    phase_done("phase 3, synthetic cases")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        fq, fq_ava = Path(tmp) / "reads.fq", Path(tmp) / "ava" / "reads.fq"
+        fq_ava.parent.mkdir()
+        write_corpus(fq, READS)
+        write_corpus(fq_ava, AVA_READS)
+        phase_done("corpora")
+        launches, ext_launches = twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext)
+        phase_done("phases 4-6, two-set ONT")
+        ava_reads = ava_path(ck, dev, gpu_line, fq_ava)
+        phase_done("phase 7, all-vs-all ONT")
+        span_launches = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
+        phase_done("phase 8, PacBio")
+    print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     def record(name, r, n):
-        # times and bound on the main path's own anchors; the largest
-        # error over every phase-3 case
+        # times and bound on the path's own anchors; the largest error
+        # over every phase-3 case
         m = r["main_path"]
         return {
             "name": name, "route": "cuda", "source": "lrge_tpu_torch/csrc/chain_dp.cu",
@@ -501,7 +629,9 @@ def main() -> int:
 
     kernels = [record("chain_dp_skip", recs, launches),
                dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
-                    also_replaces="lrge_tpu/ops/overlap_jax.py:661-788")]
+                    also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
+               dict(record("chain_dp_skip_span", recs_span, span_launches),
+                    also_replaces="lrge_tpu/ops/overlap_jax.py:624-788 (with_spans)")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

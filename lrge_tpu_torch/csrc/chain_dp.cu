@@ -4,11 +4,21 @@
 // (body _chain_kernel).  Semantics: see lrge_tpu_torch/ops/chain_kernel.py,
 // whose chain_dp_skip_plain is the reference this kernel is held to.
 //
-// The EXT = true variant also carries the chain-extent state of the XLA
-// scan's -F path (lrge_tpu/ops/overlap_jax.py:661-788): three more rings
-// with per-anchor outputs cnt (chain anchor count), start (rpos << 16 |
-// qpos of the chain's first anchor) and rmf (running max f << 1 | valley
-// bit).  Each anchor takes them from its chosen predecessor: the position
+// Three variants share one walk (template parameter V):
+// - BASE: constant span, outputs f and broke (the ONT main path).
+// - EXT also carries the chain-extent state of the XLA scan's -F path
+//   (lrge_tpu/ops/overlap_jax.py:661-788): three more rings with
+//   per-anchor outputs cnt (chain anchor count), start (rpos << 16 | qpos
+//   of the chain's first anchor) and rmf (running max f << 1 | valley
+//   bit).
+// - SPAN is the scan's with_spans step (overlap_jax.py:624-744, the
+//   PacBio/HPC preset), which the reference ran only in XLA: qpos arrives
+//   packed as qpos << 8 | span, the score takes the predecessor's span
+//   (min(dg, psp) and the (dd != 0 || dg > psp) test), the running max's
+//   seed, the floor of f and has_pred take the current anchor's.  It keeps
+//   the cnt ring (output cnt, for the min_cnt gate); each predecessor's
+//   span is unpacked from its ring qpos, so there is no span ring.
+// Each anchor takes its carries from its chosen predecessor: the position
 // bd is warp-uniform after the reduce, so every lane selects slot bd % S
 // and one __shfl_sync per ring reads lane bd / S.
 //
@@ -22,9 +32,9 @@
 // f, broke, cnt, start and rmf therefore depend only on the earlier
 // anchors of its own run, and the walk of a run may start from an empty
 // ring (rok = false, rp = -1), which is what the row walk holds at a run
-// boundary once the previous run's entries fail `ok`.  Slot indices stay
-// absolute (p_t = i - 1 - bd), so the marked set's i - 1 - rp means what
-// it means in the row walk.  Every ring entry of a run holds the run's
+// boundary once the previous run's entries fail `ok` (whatever their
+// span, under SPAN).  Slot indices stay absolute (p_t = i - 1 - bd), so
+// the marked set's i - 1 - rp means what it means in the row walk.  Every ring entry of a run holds the run's
 // key, so the walk keeps no key ring and drops the key compare.
 //
 // Layout: a run's predecessor ring (W newest anchors, position d = 0 is
@@ -39,8 +49,8 @@
 // ring shifts by one position (__shfl_up_sync carries the last slot of
 // each lane to the next lane) and lane 0 takes the new anchor.
 //
-// What bounds it.  The bytes are tiny (four int32 inputs and two or five
-// outputs per anchor) and the arithmetic is ~75 integer/f32 operations
+// What bounds it.  The bytes are tiny (four int32 inputs and two, three
+// or five outputs per anchor) and the arithmetic is ~75 integer/f32 operations
 // per (anchor, in-run predecessor) pair, so the roofline bound is a few
 // hundredths of a millisecond at the main shapes.  What the card waits on
 // is the chain of ~25 dependent shuffle rounds per anchor: a warp's walk
@@ -49,9 +59,9 @@
 // launch runs two kernels.  find_runs_kernel gives each 32-slot chunk of
 // a row one warp, which marks the chunk's run starts with one ballot over
 // key2, writes the padding past the row's count ((NEG, 0), and 0 for the
-// EXT planes), and lists the chunk: in the long list when its last run
-// reaches the chunk's end (every run longer than a chunk is one), in the
-// short list when it starts other runs.  chain_dp_kernel, a persistent
+// EXT and SPAN planes), and lists the chunk: in the long list when its
+// last run reaches the chunk's end (every run longer than a chunk is
+// one), in the short list when it starts other runs.  chain_dp_kernel, a persistent
 // grid sized to the card's resident warps, then walks every long run to
 // its end and after them every short-run chunk's runs, one item a claim.
 // The long runs set the critical path and are fewer than the resident
@@ -71,6 +81,10 @@ constexpr int NEG = -1073741824;  // INT32_MIN / 2
 constexpr int IMAX = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS_PER_BLOCK = 8;
+
+// the variants (template parameter V); their order is the build report's
+// (ops/chain_kernel.py::VARIANTS)
+constexpr int BASE = 0, EXT = 1, SPAN = 2;
 
 // resident blocks per SM asked of ptxas for the walk: W <= 32 fits 64
 // warps an SM in its registers (32 a thread, with some spill; 6 blocks
@@ -128,20 +142,23 @@ struct Args {
   int* rmf_out;
 };
 
-// A run's predecessor ring: lane l holds positions d = l*S + s.
-template <int W, bool EXT>
+// A run's predecessor ring: lane l holds positions d = l*S + s.  Under
+// SPAN, rq holds the packed qpos << 8 | span.
+template <int W, int V>
 struct Ring {
   static constexpr int S = W >= 32 ? W / 32 : 1;
+  static constexpr bool CNT = V != BASE, XT = V == EXT;
   int rr[S], rq[S], rf[S], rp[S];
   bool rok[S];
-  // extent rings (EXT only): chain count, packed chain start, rmf
-  int rc[EXT ? S : 1], rs[EXT ? S : 1], rm[EXT ? S : 1];
+  // the chain count ring (EXT and SPAN); packed chain start and rmf (EXT)
+  int rc[CNT ? S : 1], rs[XT ? S : 1], rm[XT ? S : 1];
 
   __device__ __forceinline__ Ring() {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       rr[s] = 0; rq[s] = 0; rf[s] = NEG; rp[s] = -1; rok[s] = false;
-      if constexpr (EXT) { rc[s] = 0; rs[s] = 0; rm[s] = 0; }
+      if constexpr (CNT) rc[s] = 0;
+      if constexpr (XT) { rs[s] = 0; rm[s] = 0; }
     }
   }
 };
@@ -152,12 +169,12 @@ struct Out {
   int f = NEG, b = 0, c = 0, s = 0, r = 0;
 };
 
-template <bool EXT>
+template <int V>
 __device__ __forceinline__ void store(const Args& a, size_t at, const Out& o) {
   a.f_out[at] = o.f;
   a.broke_out[at] = o.b;
-  if constexpr (EXT) {
-    a.cnt_out[at] = o.c;
+  if constexpr (V != BASE) a.cnt_out[at] = o.c;
+  if constexpr (V == EXT) {
     a.start_out[at] = o.s;
     a.rmf_out[at] = o.r;
   }
@@ -166,10 +183,10 @@ __device__ __forceinline__ void store(const Args& a, size_t at, const Out& o) {
 // Walk slots [base + j0, base + j1) of the 32-slot block whose slot
 // base + lane is held in lane `lane` (lr, lq, lv), continuing ring R;
 // slot base + j's outputs go to lane j's `o`.
-template <int W, bool EXT>
-__device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int base, int j0, int j1,
+template <int W, int V>
+__device__ __forceinline__ void walk_block(Ring<W, V>& R, const Args& a, int base, int j0, int j1,
                                            int lr, int lq, int lv, int lane, Out& o) {
-  constexpr int S = Ring<W, EXT>::S;
+  constexpr int S = Ring<W, V>::S;
   constexpr int P = W >= 32 ? W / 32 : 1;  // vote planes
   const float pen_gap = a.pen_gap;
   const int span = a.span, max_gap = a.max_gap, bw = a.bw, max_skip = a.max_skip;
@@ -178,6 +195,9 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
     const int cr = __shfl_sync(FULL, lr, j);
     const int cq = __shfl_sync(FULL, lq, j);
     const bool cv = __shfl_sync(FULL, lv, j) != 0;
+    // the current anchor's query position and span
+    const int cqp = V == SPAN ? cq >> 8 : cq;
+    const int cspan = V == SPAN ? cq & 255 : span;
 
     // candidate scores against the ring
     int cand[S];
@@ -185,7 +205,10 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int d = lane * S + s;
-      const int dq = cq - R.rq[s];
+      // the predecessor's query position and span
+      const int pq = V == SPAN ? R.rq[s] >> 8 : R.rq[s];
+      const int psp = V == SPAN ? R.rq[s] & 255 : span;
+      const int dq = cqp - pq;
       const int dr = cr - R.rr[s];
       const int dd = abs(dr - dq);
       const int dg = min(dq, dr);
@@ -193,11 +216,11 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
                       dr > 0 && dr <= max_gap && dd <= bw;
       int c = NEG;
       if (ok) {
-        int sc = min(dg, span);
+        int sc = min(dg, psp);
         const float lin = __fmul_rn(pen_gap, static_cast<float>(dd));
         const float logp = dd >= 1 ? mg_log2(static_cast<float>(dd + 1)) : 0.0f;
         const int pen = static_cast<int>(__fadd_rn(lin, __fmul_rn(0.5f, logp)));
-        if (dd != 0 || dg > span) sc -= pen;
+        if (dd != 0 || dg > psp) sc -= pen;
         c = sc + R.rf[s];
       }
       cand[s] = c;
@@ -218,7 +241,8 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
       votes[b] = __reduce_or_sync(FULL, v);
     }
 
-    // running max of cand (exclusive at each position), seeded with span
+    // running max of cand (exclusive at each position), seeded with the
+    // current anchor's span
     int loc[S];
     loc[0] = cand[0];
 #pragma unroll
@@ -229,7 +253,7 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
     for (int s = 0; s < S; ++s) {
       const int d = lane * S + s;
       const int prev = s == 0 ? cx : max(cx, loc[s - 1]);
-      const bool improving = okv[s] && cand[s] > max(prev, span);
+      const bool improving = okv[s] && cand[s] > max(prev, cspan);
       const bool marked = (votes[(d >> 5) % P] >> (d & 31)) & 1u;
       av[s] = (okv[s] && marked && !improving) - (improving ? 1 : 0);
     }
@@ -270,37 +294,47 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
       if (cand[s] == best) bd = lane * S + s;
     bd = __reduce_min_sync(FULL, bd);
 
-    const bool has_pred = best > span;
-    const int f_t = cv ? max(span, best) : NEG;
+    const bool has_pred = best > cspan;
+    const int f_t = cv ? max(cspan, best) : NEG;
     const int p_t = (cv && has_pred) ? i - 1 - bd : -1;
     int c_t = 0, s_t = 0, r_t = 0;
-    if constexpr (EXT) {
+    if constexpr (V != BASE) {
       // the chosen predecessor's carries: slot bd % S of lane bd / S
       int gc = 0, gs = 0, gm = 0;
 #pragma unroll
       for (int s = 0; s < S; ++s)
-        if (s == bd % S) { gc = R.rc[s]; gs = R.rs[s]; gm = R.rm[s]; }
+        if (s == bd % S) {
+          gc = R.rc[s];
+          if constexpr (V == EXT) { gs = R.rs[s]; gm = R.rm[s]; }
+        }
       gc = __shfl_sync(FULL, gc, bd / S);
-      gs = __shfl_sync(FULL, gs, bd / S);
-      gm = __shfl_sync(FULL, gm, bd / S);
+      if constexpr (V == EXT) {
+        gs = __shfl_sync(FULL, gs, bd / S);
+        gm = __shfl_sync(FULL, gm, bd / S);
+      }
       if (cv && has_pred) {
-        const int prevmax = gm >> 1;
-        const int valley = (gm & 1) | (prevmax - f_t > bw ? 1 : 0);
         c_t = gc + 1;
-        s_t = gs;
-        r_t = (max(prevmax, f_t) << 1) | valley;
+        if constexpr (V == EXT) {
+          const int prevmax = gm >> 1;
+          const int valley = (gm & 1) | (prevmax - f_t > bw ? 1 : 0);
+          s_t = gs;
+          r_t = (max(prevmax, f_t) << 1) | valley;
+        }
       } else if (cv) {
         // a chain starts here (int32 wrap as in the reference; the
         // -F gate keeps rpos < 2^15)
         c_t = 1;
-        s_t = static_cast<int>((static_cast<unsigned>(cr) << 16) | static_cast<unsigned>(cq));
-        r_t = f_t << 1;
+        if constexpr (V == EXT) {
+          s_t = static_cast<int>((static_cast<unsigned>(cr) << 16) | static_cast<unsigned>(cq));
+          r_t = f_t << 1;
+        }
       }
     }
     if (lane == j) {
       o.f = f_t;
       o.b = (cv && cut < W) ? 1 : 0;
-      if constexpr (EXT) { o.c = c_t; o.s = s_t; o.r = r_t; }
+      if constexpr (V != BASE) o.c = c_t;
+      if constexpr (V == EXT) { o.s = s_t; o.r = r_t; }
     }
 
     // push the anchor onto the ring (newest first)
@@ -315,8 +349,8 @@ __device__ __forceinline__ void walk_block(Ring<W, EXT>& R, const Args& a, int b
     LRGE_PUSH(rf, f_t)
     LRGE_PUSH(rp, p_t)
     LRGE_PUSH(rok, cv)
-    if constexpr (EXT) {
-      LRGE_PUSH(rc, c_t)
+    if constexpr (V != BASE) LRGE_PUSH(rc, c_t)
+    if constexpr (V == EXT) {
       LRGE_PUSH(rs, s_t)
       LRGE_PUSH(rm, r_t)
     }
@@ -374,7 +408,7 @@ __device__ __forceinline__ Starts starts_of(const Args& a, const Chunk& ch, int 
 // count to A) and appends the chunk to the long list (as c * 32 + the
 // long run's start lane) and/or the short list (as c); one 64-bit atomic
 // per block of 32 chunks takes both lists' places.
-template <bool EXT>
+template <int V>
 __global__ void __launch_bounds__(1024) find_runs_kernel(const Args a, unsigned long long* counts,
                                                           int* longs, int* shorts) {
   __shared__ int flags[32];
@@ -388,7 +422,7 @@ __global__ void __launch_bounds__(1024) find_runs_kernel(const Args a, unsigned 
     const Starts st = starts_of(a, ch, key, lane);
     const unsigned rest = st.reaches ? st.starts & ~(1u << st.last) : st.starts;
     flag = (st.reaches ? 1 | (st.last << 1) : 0) | (rest ? 64 : 0);
-    if (!ch.in && ch.idx < a.A) store<EXT>(a, ch.off + ch.idx, Out());
+    if (!ch.in && ch.idx < a.A) store<V>(a, ch.off + ch.idx, Out());
   }
   if (lane == 0) flags[warp] = flag;
   __syncthreads();
@@ -407,7 +441,7 @@ __global__ void __launch_bounds__(1024) find_runs_kernel(const Args a, unsigned 
 }
 
 // The long run of chunk c, from lane `last`, walked to its end.
-template <int W, bool EXT>
+template <int W, int V>
 __device__ __forceinline__ void walk_long(const Args& a, int c, int last, int lane) {
   const Chunk ch = chunk_at(a, c, lane);
   int lr = 0, lq = 0, lv = 0;
@@ -415,11 +449,11 @@ __device__ __forceinline__ void walk_long(const Args& a, int c, int last, int la
     lr = a.rpos[ch.off + ch.idx]; lq = a.qpos[ch.off + ch.idx]; lv = a.valid[ch.off + ch.idx];
   }
   const int rk = a.key2[ch.off + ch.base + 31];
-  Ring<W, EXT> R;
+  Ring<W, V> R;
   {
     Out o;
-    walk_block<W, EXT>(R, a, ch.base, last, 32, lr, lq, lv, lane, o);
-    if (lane >= last) store<EXT>(a, ch.off + ch.idx, o);
+    walk_block<W, V>(R, a, ch.base, last, 32, lr, lq, lv, lane, o);
+    if (lane >= last) store<V>(a, ch.off + ch.idx, o);
   }
   for (int b = ch.base + 32; b < ch.n; b += 32) {
     const int id = b + lane;
@@ -431,14 +465,14 @@ __device__ __forceinline__ void walk_long(const Args& a, int c, int last, int la
     const int m = run == FULL ? 32 : __ffs(~run) - 1;
     if (m == 0) break;
     Out o;
-    walk_block<W, EXT>(R, a, b, 0, m, r2, q2, v2, lane, o);
-    if (lane < m) store<EXT>(a, ch.off + id, o);
+    walk_block<W, V>(R, a, b, 0, m, r2, q2, v2, lane, o);
+    if (lane < m) store<V>(a, ch.off + id, o);
     if (m < 32) break;
   }
 }
 
 // The short runs of chunk c, each from an empty ring.
-template <int W, bool EXT>
+template <int W, int V>
 __device__ __forceinline__ void walk_short(const Args& a, int c, int lane) {
   const Chunk ch = chunk_at(a, c, lane);
   int key = IMAX, lr = 0, lq = 0, lv = 0;
@@ -456,10 +490,10 @@ __device__ __forceinline__ void walk_short(const Args& a, int c, int lane) {
     const int j0 = __ffs(todo) - 1;
     todo &= todo - 1;
     const unsigned after = j0 == 31 ? 0u : stops >> (j0 + 1);
-    Ring<W, EXT> R;
-    walk_block<W, EXT>(R, a, ch.base, j0, after ? j0 + __ffs(after) : 32, lr, lq, lv, lane, o);
+    Ring<W, V> R;
+    walk_block<W, V>(R, a, ch.base, j0, after ? j0 + __ffs(after) : 32, lr, lq, lv, lane, o);
   }
-  if (ch.in && lane >= first && lane < lim) store<EXT>(a, ch.off + ch.idx, o);
+  if (ch.in && lane >= first && lane < lim) store<V>(a, ch.off + ch.idx, o);
 }
 
 // Kernel 2: a persistent grid walks the long runs, then the short-run
@@ -468,7 +502,7 @@ __device__ __forceinline__ void walk_short(const Args& a, int c, int lane) {
 // SMs instead of crowding the first blocks to start; later items come
 // from an atomic counter, fetched before the current item is walked so
 // that the atomic's latency hides behind the walk.
-template <int W, bool EXT>
+template <int W, int V>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK, MinBlocks<W>::value)
 chain_dp_kernel(const Args a, const unsigned long long* counts, const int* longs, const int* shorts,
                 int* next) {
@@ -483,9 +517,9 @@ chain_dp_kernel(const Args a, const unsigned long long* counts, const int* longs
     if (lane == 0) nxt = total + atomicAdd(next, 1);
     if (e < nl) {
       const int v = longs[e];
-      walk_long<W, EXT>(a, v >> 5, v & 31, lane);
+      walk_long<W, V>(a, v >> 5, v & 31, lane);
     } else {
-      walk_short<W, EXT>(a, shorts[e - nl], lane);
+      walk_short<W, V>(a, shorts[e - nl], lane);
     }
     e = __shfl_sync(FULL, nxt, 0);
   }
@@ -494,7 +528,7 @@ chain_dp_kernel(const Args a, const unsigned long long* counts, const int* longs
 // The scratch `work` (int32, 4 + 2 * chunks, 8-byte aligned): the two
 // lists' lengths (one 64-bit word), the claim counter, a pad word, then
 // the long and the short list.
-template <int W, bool EXT>
+template <int W, int V>
 int launch_w(const Args& a, int* work, cudaStream_t st) {
   constexpr int threads = 32 * WARPS_PER_BLOCK;
   // the current card's resident blocks of the walk, asked on every launch
@@ -503,38 +537,38 @@ int launch_w(const Args& a, int* work, cudaStream_t st) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_dp_kernel<W, EXT>, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_dp_kernel<W, V>, threads, 0);
   if (err == cudaSuccess) err = cudaMemsetAsync(work, 0, 4 * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cells = a.B * ((a.A + 31) / 32);
   auto* counts = reinterpret_cast<unsigned long long*>(work);
   int* longs = work + 4;
   int* shorts = longs + cells;
-  find_runs_kernel<EXT><<<(cells + 31) / 32, 1024, 0, st>>>(a, counts, longs, shorts);
+  find_runs_kernel<V><<<(cells + 31) / 32, 1024, 0, st>>>(a, counts, longs, shorts);
   // persistent grid: every resident warp, or one warp per chunk when the
   // rows hold fewer (the list lengths are not known on the host)
   const int want = (cells + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  chain_dp_kernel<W, EXT><<<want < resident ? want : resident, threads, 0, st>>>(a, counts, longs, shorts,
+  chain_dp_kernel<W, V><<<want < resident ? want : resident, threads, 0, st>>>(a, counts, longs, shorts,
                                                                                   work + 2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool EXT>
+template <int V>
 int launch(const Args& a, int window, int* work, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (window) {
-    case 16: return launch_w<16, EXT>(a, work, st);
-    case 32: return launch_w<32, EXT>(a, work, st);
-    case 64: return launch_w<64, EXT>(a, work, st);
-    case 128: return launch_w<128, EXT>(a, work, st);
+    case 16: return launch_w<16, V>(a, work, st);
+    case 32: return launch_w<32, V>(a, work, st);
+    case 64: return launch_w<64, V>(a, work, st);
+    case 128: return launch_w<128, V>(a, work, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Both entry points return the first CUDA error of the launch (0 on
+// The entry points return the first CUDA error of the launch (0 on
 // success).  Rows are [B, A] int32, sorted by (key2, rpos) over
 // [0, nvalid); `work` is int32 scratch of 4 + 2 * B * ceil(A / 32)
 // entries, 8-byte aligned, that the launch initialises itself.
@@ -545,7 +579,7 @@ extern "C" int chain_dp_skip_launch(const int* key2, const int* rpos, const int*
                                     int* broke, void* stream) {
   const Args a{key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap,
                bw, max_skip, f, broke, nullptr, nullptr, nullptr};
-  return launch<false>(a, window, work, stream);
+  return launch<BASE>(a, window, work, stream);
 }
 
 // The -F variant: also writes cnt, start and rmf ([B, A] int32 each).
@@ -557,5 +591,17 @@ extern "C" int chain_dp_skip_ext_launch(const int* key2, const int* rpos, const 
                                         int* rmf, void* stream) {
   const Args a{key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap,
                bw, max_skip, f, broke, cnt, start, rmf};
-  return launch<true>(a, window, work, stream);
+  return launch<EXT>(a, window, work, stream);
+}
+
+// The PacBio/HPC variant: qpos is packed as qpos << 8 | span (span is
+// unused); also writes cnt ([B, A] int32).
+extern "C" int chain_dp_skip_span_launch(const int* key2, const int* rpos, const int* qpos,
+                                         const int* valid, const int* nvalid, int* work,
+                                         int B, int A, float pen_gap,
+                                         int span, int max_gap, int bw, int max_skip,
+                                         int window, int* f, int* broke, int* cnt, void* stream) {
+  const Args a{key2, rpos, qpos, valid, nvalid, B, A, pen_gap, span, max_gap,
+               bw, max_skip, f, broke, cnt, nullptr, nullptr};
+  return launch<SPAN>(a, window, work, stream);
 }

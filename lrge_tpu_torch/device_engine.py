@@ -1,16 +1,21 @@
 """Batched device overlap engine with exact host recompute (PyTorch).
 
-Port of the single-device, fused single-sub ONT path of
+Port of the single-device, single-sub path of
 ``lrge_tpu/device_engine.py``: queries are partitioned into length
 buckets, padded into super-batches, and each super-batch runs the whole
-pipeline (``ops.overlap.sketch_map_many``) on ``device``.  Rows the
-device cannot guarantee exactly (anchor-buffer overflow, a (rid,
-strand) run longer than the DP window, minimizer-capacity truncation,
-ambiguous bases) are recomputed by the exact host engine, so counts
-equal the host engine's; every such row is tallied in
+pipeline on ``device``: for ONT the fused ``ops.overlap.sketch_map_many``,
+for the PacBio/HPC preset (``pb_mode``) host-sketched hash planes through
+``ops.overlap.pb_map_many`` (wide-key lookup, then the span chain DP
+with the ``min_cnt`` gate).  Rows the device cannot guarantee exactly
+(anchor-buffer overflow, a (rid, strand) run longer than the DP window
+or a chain short of ``min_cnt``, minimizer-capacity truncation,
+ambiguous bases under ONT) are recomputed by the exact host engine, so
+counts equal the host engine's; every such row is tallied in
 ``fallback_triggers``.  ``count_batch`` can also collect each row's
 passing target ids (ava, ``--use-min-ref``) and apply the ``-F``
-overhang filter on the device (``supports_device_filter``).
+overhang filter on the device (``supports_device_filter``; never under
+``pb_mode``, where the strategies filter on the host, as the reference
+does).
 """
 
 from __future__ import annotations
@@ -28,7 +33,11 @@ from .engine import OverlapEngine
 from .native import native
 from .ops.encode import make_batches
 from .ops.index import TargetIndex
-from .ops.overlap import HAD_BIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host, sketch_map_many
+from .ops.overlap import (
+    HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host, pb_map_many,
+    sketch_map_many,
+)
+from .ops.sketch import sketch_seqs_native
 
 logger = logging.getLogger("lrge")
 
@@ -111,8 +120,15 @@ class DeviceOverlapEngine:
         self.length_buckets = tuple(sorted(length_buckets))
         self.super_batch = super_batch
         self.fallback_triggers = Counter()  # why rows went to the host
-        if self.params.hpc or 2 * self.params.k > 32:
-            raise NotImplementedError("PacBio/HPC on the device: ROADMAP.md item 11")
+        # PacBio/HPC preset: 2k = 38-bit keys (two int32 planes on the
+        # device) and per-minimizer spans; queries are sketched on the
+        # host by the native kernel (exact, HPC quirks included)
+        self.pb_mode = self.params.hpc or 2 * self.params.k > 32
+        if self.pb_mode and native is None:
+            raise RuntimeError(
+                "the PacBio/HPC device path sketches queries with the native extension "
+                "(lrge_tpu_torch.native), which did not build"
+            )
         self.device_ok = len(index.keys) > 0
         self.gdev = None
         if not self.device_ok:
@@ -131,7 +147,9 @@ class DeviceOverlapEngine:
         bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
         self.gdev = GroupedDeviceIndex.from_host(index, self.device, bucket_bits=bucket_bits)
         if self.gdev is None:
-            self.device_ok = False  # every posting pruned by the occurrence cutoff
+            # from_host logged why: every posting pruned, or a wide index
+            # without a bucketed dictionary; every row goes to the host
+            self.device_ok = False
 
     def query_ranks(self, names) -> tuple[np.ndarray, np.ndarray]:
         """Each query's dual-mask rank (0 without ``no_dual``) and self-id,
@@ -199,26 +217,33 @@ class DeviceOverlapEngine:
             return list(ex.map(one, items))
 
     def supports_device_filter(self) -> bool:
-        """Whether ``-F`` can run on the device: chain starts pack as
+        """Whether ``-F`` can run on the device: not under ``pb_mode`` (the
+        extent carries are constant-span only); chain starts pack as
         ``(rpos << 16) | qpos`` in int32, so every target must be shorter
         than 2^15 and every padded query (plus k) shorter than 2^16."""
         return (
             self.device_ok
+            and not self.pb_mode
             and int(np.max(self.index.lengths)) < (1 << 15)
             and self.length_buckets[-1] + self.params.k < (1 << 16)
         )
 
     def triage_flags(self, live, n_anchors, cap, max_run, mcount, mcap, codes, lengths):
         """Flag rows whose device result cannot be guaranteed exact and
-        tally ``fallback_triggers``; returns the "needs host recompute" mask."""
+        tally ``fallback_triggers``; returns the "needs host recompute"
+        mask.  Under ``pb_mode`` the host sketched the rows exactly, so
+        no row is a sketch quirk."""
         t_over = (n_anchors > cap) & live
         t_miss = (max_run > self.window) & live & ~t_over
         t_mini = (mcount > mcap) & live & ~t_over & ~t_miss
         prior = t_over | t_miss | t_mini
-        # ambiguous bases force the scalar sketch oracle; the padding
-        # tail is code 4 too, so subtract it out
-        n_amb = (codes >= 4).sum(axis=-1, dtype=np.int64)
-        t_quirk = ((n_amb - (codes.shape[-1] - lengths)) > 0) & live & ~prior
+        if self.pb_mode:
+            t_quirk = np.zeros_like(prior)
+        else:
+            # ambiguous bases force the scalar sketch oracle; the padding
+            # tail is code 4 too, so subtract it out
+            n_amb = (codes >= 4).sum(axis=-1, dtype=np.int64)
+            t_quirk = ((n_amb - (codes.shape[-1] - lengths)) > 0) & live & ~prior
         for key, trig in (
             ("anchor_overflow", t_over),
             ("window_miss", t_miss),
@@ -331,17 +356,49 @@ class DeviceOverlapEngine:
             selfr = np.where(ids >= 0, qselfrid[ids], -1).astype(np.int32)
             yield len(group), A, codes, lengths, ids, dual, selfr
 
+    def _pb_planes(self, row_seqs, M):
+        """Host-sketch a batch of PacBio reads into the device lookup planes
+        (numpy): ``(qhi, qlo, mps, mcount)``, the 38-bit hash split at bit
+        19 (``qhi`` -1 on padding), ``pos << 9 | span << 1 | strand``, and
+        the true minimizer counts (rows above ``M`` go to the host)."""
+        p = self.params
+        mzs = sketch_seqs_native(row_seqs, p.k, p.w, p.hpc)
+        n = len(row_seqs)
+        qhi = np.full((n, M), -1, dtype=np.int32)
+        qlo = np.zeros((n, M), dtype=np.int32)
+        mps = np.zeros((n, M), dtype=np.int32)
+        mcount = np.zeros(n, dtype=np.int32)
+        for i, mz in enumerate(mzs):
+            h38 = mz.key >> np.uint64(8)
+            c = min(len(h38), M)
+            mcount[i] = len(h38)
+            qhi[i, :c] = (h38 >> np.uint64(PB_SPLIT)).astype(np.int32)[:c]
+            qlo[i, :c] = (h38 & np.uint64(PB_LOMASK)).astype(np.int32)[:c]
+            span = (mz.key & np.uint64(0xFF)).astype(np.int32)
+            mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (span[:c] << 1) | mz.strand.astype(np.int32)[:c]
+        return qhi, qlo, mps, mcount
+
     def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
         """Enqueue the super-batches of one length bucket; yields
         ``(nb, A, codes, lengths, ids, packed_device_plane,
         pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
-        arguments of :func:`sketch_map_many`."""
+        arguments of :func:`sketch_map_many` (under ``pb_mode``, the pair
+        argument of :func:`pb_map_many`)."""
         put = lambda a: torch.from_numpy(a).to(self.device)
         for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
-            packed, pairs = sketch_map_many(
-                put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
-                self.gdev, self.params, num_anchors=A, window=self.window, **mode,
-            )
+            if self.pb_mode:
+                planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
+                qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
+                packed, pairs = pb_map_many(
+                    qhi, qlo, mps, put(planes[3].reshape(ids.shape)), put(lengths), put(dual), put(selfr),
+                    self.gdev, self.params, num_anchors=A, window=self.window,
+                    want_pairs=mode["want_pairs"],
+                )
+            else:
+                packed, pairs = sketch_map_many(
+                    put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
+                    self.gdev, self.params, num_anchors=A, window=self.window, **mode,
+                )
             yield nb, A, codes, lengths, ids, packed, pairs
 
     def count_batch(
@@ -363,7 +420,7 @@ class DeviceOverlapEngine:
         had = np.zeros(n, dtype=bool)
         if filter_ratio is not None:
             if self.device_ok and not self.supports_device_filter():
-                raise ValueError("-F on the device needs targets < 2^15 bp (supports_device_filter)")
+                raise ValueError("-F cannot run on the device for this index (supports_device_filter)")
             host_fn = lambda items: self._host_count_filtered(
                 items, filter_ratio, mode=filter_mode, want_pairs=collect_pairs is not None
             )

@@ -25,6 +25,18 @@ qpos`` of the chain's first anchor, int32) and ``rmf`` (running max of
 kernel for it (``EXT`` in ``csrc/chain_dp.cu``) with its own launch
 counter, ``chain_dp_skip.ext_launches``.
 
+With ``spans=True`` (the PacBio/HPC preset) each anchor carries its own
+span, packed into ``qpos`` as ``qpos << 8 | span``, and the DP is the
+XLA scan's ``with_spans`` step (``overlap_jax.py:624-744``), which the
+reference never ran in Pallas: the score takes the predecessor's span,
+``min(dg, psp)``, with the ``(dd != 0) | (dg > psp)`` test, while the
+running max's seed, the floor of ``f`` and ``has_pred`` take the
+current anchor's span.  Outputs are ``f``, ``broke`` and ``cnt`` (the
+chain's anchor count, for the ``min_cnt`` gate).  The card runs a
+third variant (``SPAN``) with the counter ``chain_dp_skip.span_launches``;
+it unpacks each predecessor's span from its ring ``qpos`` and keeps the
+``cnt`` ring that ``EXT`` keeps.
+
 How the card walks it (``csrc/chain_dp.cu``, whose header note says
 more): an anchor's outputs depend only on the earlier anchors of its
 own (rid, strand) run, because a predecessor with another ``key2`` is
@@ -40,7 +52,7 @@ in registers with absolute slot indices.  The lists stay on the card:
 no host sync and no sort.
 
 What bounds it on an H100: the bytes are tiny (four int32 inputs and
-two outputs per anchor, five with ``extents``) and the roofline bound
+two outputs per anchor, five with ``extents``, three with ``spans``) and the roofline bound
 is a few hundredths of a millisecond at the main shapes, but each
 anchor is a chain of ~25 dependent warp-shuffle rounds (three prefix
 scans, three reductions, the marked-set OR, the ring push).  A launch
@@ -113,19 +125,23 @@ def build_library() -> Path:
     return so
 
 
+# the kernel's variants, by their template index in csrc/chain_dp.cu
+VARIANTS = ("base", "ext", "span")
+
+
 def ptxas_report(so: Path) -> list[str]:
     """One line per kernel instance from the build's ``-Xptxas -v``
-    output: ``W=32 EXT=0: 40 registers, 0 B stack, 0 B spill stores,
-    0 B spill loads`` (``find_runs EXT=0: ...`` for the run finder)."""
+    output: ``W=32 span: 40 registers, 0 B stack, 0 B spill stores,
+    0 B spill loads`` (``find_runs span: ...`` for the run finder)."""
     text = so.with_suffix(".ptxas.txt").read_text()
     out, name, frame = [], None, ""
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\S*chain_dp_kernelILi(\d+)ELb([01])E", line)
+        m = re.search(r"Compiling entry function '\S*chain_dp_kernelILi(\d+)ELi(\d)E", line)
         if m:
-            name = f"W={m.group(1)} EXT={m.group(2)}"
-        m = re.search(r"Compiling entry function '\S*find_runs_kernelILb([01])E", line)
+            name = f"W={m.group(1)} {VARIANTS[int(m.group(2))]}"
+        m = re.search(r"Compiling entry function '\S*find_runs_kernelILi(\d)E", line)
         if m:
-            name = f"find_runs EXT={m.group(1)}"
+            name = f"find_runs {VARIANTS[int(m.group(1))]}"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             frame = f"{m.group(1)} B stack, {m.group(2)} B spill stores, {m.group(3)} B spill loads"
@@ -145,7 +161,9 @@ def _lib() -> ctypes.CDLL:
     head = [P, P, P, P, P, P, I, I, F, I, I, I, I, I]
     lib.chain_dp_skip_launch.argtypes = head + [P, P, P]
     lib.chain_dp_skip_ext_launch.argtypes = head + [P, P, P, P, P, P]
-    lib.chain_dp_skip_launch.restype = lib.chain_dp_skip_ext_launch.restype = I
+    lib.chain_dp_skip_span_launch.argtypes = head + [P, P, P, P]
+    for fn in (lib.chain_dp_skip_launch, lib.chain_dp_skip_ext_launch, lib.chain_dp_skip_span_launch):
+        fn.restype = I
     return lib
 
 
@@ -174,10 +192,12 @@ def chain_dp_skip(
     max_skip: int = 25,
     window: int = 32,
     extents: bool = False,
+    spans: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Chain scores ``f`` and ``broke`` flags, both ``[B, A]`` int32;
-    with ``extents``, also ``cnt``, ``start`` and ``rmf`` (``[B, A]``
-    int32 each)."""
+    with ``extents``, also ``cnt``, ``start`` and ``rmf``; with ``spans``
+    (``qpos`` packed as ``qpos << 8 | span``; ``span`` unused), also
+    ``cnt`` (``[B, A]`` int32 each)."""
     B, A = key2.shape
     dev = key2.device
     _check("key2", key2, (B, A), dev)
@@ -186,23 +206,30 @@ def chain_dp_skip(
     _check("nvalid", nvalid, (B,), dev)
     if window not in (16, 32, 64, 128):
         raise ValueError(f"window must be 16, 32, 64 or 128, got {window}")
+    if extents and spans:
+        raise ValueError("the -F extent carries are constant-span only")
     kw = dict(span=span, max_gap=max_gap, bw=bw, max_skip=max_skip, window=window)
     if dev.type == "cpu":
-        return chain_dp_skip_plain(key2, rpos, qpos, valid, nvalid, pen_gap, extents=extents, **kw)
+        return chain_dp_skip_plain(key2, rpos, qpos, valid, nvalid, pen_gap, extents=extents, spans=spans, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    n_out = 5 if extents else 3 if spans else 2
     if B == 0 or A == 0:
-        return tuple(torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(5 if extents else 2))
+        return tuple(torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(n_out))
     chunks = B * -(-A // 32)
     if 32 * chunks >= 2**31:
         raise ValueError(f"[{B}, {A}] rows exceed the kernel's int32 chunk lists")
-    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(5 if extents else 2)]
+    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(n_out)]
     with torch.cuda.device(dev):
         # the chunk lists and their counters (the launch zeroes these)
         work = torch.empty(4 + 2 * chunks, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _lib()
-        launch = lib.chain_dp_skip_ext_launch if extents else lib.chain_dp_skip_launch
+        launch = (
+            lib.chain_dp_skip_ext_launch if extents
+            else lib.chain_dp_skip_span_launch if spans
+            else lib.chain_dp_skip_launch
+        )
         err = launch(
             key2.data_ptr(), rpos.data_ptr(), qpos.data_ptr(), valid.data_ptr(), nvalid.data_ptr(),
             work.data_ptr(), B, A, float(np.float32(pen_gap)), span, max_gap, bw, max_skip, window,
@@ -212,6 +239,8 @@ def chain_dp_skip(
         raise RuntimeError(f"chain_dp_skip launch failed: CUDA error {err}")
     if extents:
         chain_dp_skip.ext_launches += 1
+    elif spans:
+        chain_dp_skip.span_launches += 1
     else:
         chain_dp_skip.launches += 1
     return tuple(outs)
@@ -219,6 +248,7 @@ def chain_dp_skip(
 
 chain_dp_skip.launches = 0  # the main path's variant
 chain_dp_skip.ext_launches = 0  # the extent (-F) variant
+chain_dp_skip.span_launches = 0  # the span (PacBio/HPC) variant
 
 
 def _mg_log2(x: torch.Tensor) -> torch.Tensor:
@@ -232,12 +262,15 @@ def _mg_log2(x: torch.Tensor) -> torch.Tensor:
 
 def chain_dp_skip_plain(
     key2, rpos, qpos, valid, nvalid, pen_gap, *, span, max_gap, bw, max_skip=25, window=32,
-    extents=False,
+    extents=False, spans=False,
 ):
     """Plain PyTorch version: one step per anchor slot over ``[B, W]``
     predecessor rings (newest first), mirroring the scan step of
     ``_expand_sort_chain`` (overlap_jax.py:663-788), its extent carries
-    included when ``extents`` is set."""
+    included when ``extents`` is set and its ``with_spans`` form (packed
+    ``qpos << 8 | span``, the ``cnt`` carry) when ``spans`` is set."""
+    if extents and spans:
+        raise ValueError("the -F extent carries are constant-span only")
     B, A = key2.shape
     W = window
     dev = key2.device
@@ -254,25 +287,37 @@ def chain_dp_skip_plain(
     ring_f = torch.full((B, W), NEG, **i64)
     ring_ok = torch.zeros((B, W), dtype=torch.bool, device=dev)
     ring_p = torch.full((B, W), -1, **i64)
+    track_cnt = extents or spans
+    if track_cnt:
+        cnt = torch.zeros((B, A), **i64)
+        ring_cnt = torch.zeros((B, W), **i64)
     if extents:
-        cnt, start, rmf = (torch.zeros((B, A), **i64) for _ in range(3))
-        ring_cnt, ring_sq, ring_rmf = (torch.zeros((B, W), **i64) for _ in range(3))
+        start, rmf = (torch.zeros((B, A), **i64) for _ in range(2))
+        ring_sq, ring_rmf = (torch.zeros((B, W), **i64) for _ in range(2))
     dpos = torch.arange(W, **i64)[None, :]
     neg_col = torch.full((B, 1), NEG, **i64)
+    span_col = torch.full((B, 1), span, **i64)
     false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     n = min(int(nvalid.max()) if B else 0, A)
     for i in range(n):
         ck, cr, cq = key2[:, i : i + 1], rpos[:, i : i + 1], qpos[:, i : i + 1]
         cv = valid[:, i] & (i < nvalid)
-        dq = cq - ring_qpos
+        if spans:
+            # the score takes the PREDECESSOR's span; the seed, the floor
+            # of f and has_pred take the current anchor's (cspan)
+            dq = (cq >> 8) - (ring_qpos >> 8)
+            psp, cspan = ring_qpos & 255, cq & 255
+        else:
+            dq = cq - ring_qpos
+            psp = cspan = span_col
         dr = cr - ring_rpos
         dd = (dr - dq).abs()
         dg = torch.minimum(dq, dr)
-        sc = dg.clamp(max=span)
+        sc = torch.minimum(dg, psp)
         lin = pen * dd.to(torch.float32)
         logp = torch.where(dd >= 1, _mg_log2((dd + 1).to(torch.float32)), 0.0)
         pen_i = (lin + 0.5 * logp).to(torch.int64)
-        sc = torch.where((dd != 0) | (dg > span), sc - pen_i, sc)
+        sc = torch.where((dd != 0) | (dg > psp), sc - pen_i, sc)
         ok = (
             ring_ok & (ring_key == ck) & (dq > 0) & (dq <= max_gap)
             & (dr > 0) & (dr <= max_gap) & (dd <= bw)
@@ -288,7 +333,7 @@ def chain_dp_skip_plain(
         marked.scatter_(1, tgt, True)
         marked = marked[:, :W]
         cmax = torch.cummax(cand, dim=1).values
-        runmax_excl = torch.cat([neg_col, cmax[:, :-1]], dim=1).clamp(min=span)
+        runmax_excl = torch.maximum(torch.cat([neg_col, cmax[:, :-1]], dim=1), cspan)
         improving = ok & (cand > runmax_excl)
         a_step = (ok & marked & ~improving).long() - improving.long()
         s_cum = torch.cumsum(a_step, dim=1)
@@ -299,31 +344,33 @@ def chain_dp_skip_plain(
         cand = torch.where(broken_before, NEG, cand)
         best = cand.max(dim=1).values
         bestd = torch.where(cand == best[:, None], dpos, W).min(dim=1).values
-        has_pred = best > span
+        has_pred = best > cspan[:, 0]
         p_t = torch.where(cv & has_pred, i - 1 - bestd, -1)
-        f_t = torch.where(cv, best.clamp(min=span), NEG)
+        f_t = torch.where(cv, torch.maximum(best, cspan[:, 0]), NEG)
         f[:, i] = f_t
         broke[:, i] = (overed[:, -1] & cv).long()
         push = lambda new, ring: torch.cat([new[:, None], ring[:, : W - 1]], dim=1)
+        # the chosen predecessor's carries (bestd < W always)
+        at_best = lambda ring: ring.gather(1, bestd[:, None])[:, 0]
+        if track_cnt:
+            c_t = torch.where(cv, torch.where(has_pred, at_best(ring_cnt) + 1, 1), 0)
+            cnt[:, i] = c_t
+            ring_cnt = push(c_t, ring_cnt)
         if extents:
-            # the chosen predecessor's carries (bestd < W always)
-            at_best = lambda ring: ring.gather(1, bestd[:, None])[:, 0]
-            cnt_prev, sq_prev, rmf_prev = at_best(ring_cnt), at_best(ring_sq), at_best(ring_rmf)
+            sq_prev, rmf_prev = at_best(ring_sq), at_best(ring_rmf)
             prevmax = rmf_prev >> 1
             vflag = (rmf_prev & 1) | ((prevmax - f_t) > bw).long()
-            c_t = torch.where(cv, torch.where(has_pred, cnt_prev + 1, 1), 0)
             s_t = torch.where(cv, torch.where(has_pred, sq_prev, (cr[:, 0] << 16) | cq[:, 0]), 0)
             r_t = torch.where(
                 cv, torch.where(has_pred, (torch.maximum(prevmax, f_t) << 1) | vflag, f_t << 1), 0
             )
-            cnt[:, i], start[:, i], rmf[:, i] = c_t, s_t, r_t
-            ring_cnt, ring_sq, ring_rmf = push(c_t, ring_cnt), push(s_t, ring_sq), push(r_t, ring_rmf)
+            start[:, i], rmf[:, i] = s_t, r_t
+            ring_sq, ring_rmf = push(s_t, ring_sq), push(r_t, ring_rmf)
         ring_key = push(ck[:, 0], ring_key)
         ring_rpos = push(cr[:, 0], ring_rpos)
         ring_qpos = push(cq[:, 0], ring_qpos)
         ring_f = push(f_t, ring_f)
         ring_ok = push(cv, ring_ok)
         ring_p = push(p_t, ring_p)
-    if extents:
-        return tuple(x.to(torch.int32) for x in (f, broke, cnt, start, rmf))
-    return f.to(torch.int32), broke.to(torch.int32)
+    outs = (f, broke, cnt, start, rmf) if extents else (f, broke, cnt) if spans else (f, broke)
+    return tuple(x.to(torch.int32) for x in outs)

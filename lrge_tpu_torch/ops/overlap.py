@@ -1,4 +1,4 @@
-"""Batched overlap counting on the device (PyTorch): the fused single-sub ONT pipeline.
+"""Batched overlap counting on the device (PyTorch): the single-sub ONT and PacBio pipelines.
 
 Port of the flatten branch of ``lrge_tpu/ops/overlap_jax.py::
 sketch_map_many_core`` (:1895-1933) and what it runs: 2-bit unpack,
@@ -9,9 +9,18 @@ the chain DP (a hand-written CUDA kernel on the card, see
 and score-clip guards.  Optionally the reduce also compacts each row's
 passing targets into a pair plane (ava and ``--use-min-ref``) and
 applies the ``-F`` overhang filter from the chain extents that the
-kernel's extent variant carries.  Every tensor lives on the device of
-the index planes; integers ride in int64 except where a plane or a
-kernel takes int32.
+kernel's extent variant carries.
+
+The PacBio/HPC preset (2k = 38-bit keys, per-minimizer spans) takes the
+reference's split form instead: queries are sketched on the host, their
+hashes arrive as two int32 planes and go through the wide-key bucketed
+lookup (``pb_lookup_many``, overlap_jax.py:196-255, :2233-2295); the map
+reads each minimizer's posting range from ``found``
+(``map_found_many``, :1647-1664), chains with spans through the
+kernel's span variant and gates targets on ``min_cnt``
+(overlap_jax.py:514-552, :624-744, :928-942); ``pb_map_many`` runs
+both.  Every tensor lives on the device of the index planes; integers
+ride in int64 except where a plane or a kernel takes int32.
 
 The index planes (:class:`GroupedDeviceIndex`) are built from the host
 index with numpy builders copied from the reference, because the
@@ -20,6 +29,7 @@ reference module imports JAX when it loads.
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 
@@ -29,11 +39,17 @@ import torch
 from .chain_kernel import IMAX, chain_dp_skip
 from .sketch_torch import INF, sketch_core
 
+logger = logging.getLogger("lrge")
+
 # passing-target slots per row in the pair plane (overlap_jax.py:48);
 # rows with more passing targets are recomputed on the host
 PAIR_CAP = 512
 # under -F the count plane carries the pre-filter "had any mapping" bit here
 HAD_BIT = 24
+# wide (PacBio/HPC, 2k = 38-bit) hashes ride in two int32 planes: hi =
+# hash >> PB_SPLIT, lo = hash & PB_LOMASK (overlap_jax.py:2229-2230)
+PB_SPLIT = 19
+PB_LOMASK = (1 << PB_SPLIT) - 1
 
 # ---------------------------------------------------------------------------
 # numpy builders, copied from lrge_tpu/ops/overlap_jax.py
@@ -169,20 +185,24 @@ _INT_FIELDS = (
 
 @dataclass
 class GroupedDeviceIndex:
-    """Single-sub, narrow-key device index (``GroupedDeviceIndex`` of
-    the reference at ``n_sub == 1``).
+    """Single-sub device index (``GroupedDeviceIndex`` of the reference
+    at ``n_sub == 1``), narrow or wide keys.
 
     Postings carry the target's name rank.  ``rps`` packs ``rank <<
     (1 + pos_bits) | pos << 1 | strand`` when the widths fit
-    (``packed_rid_bits`` = pos_bits), else ``rid``/``pos`` hold the two
-    planes.  ``loocc`` packs each unique hash's posting-range start and
-    width (``packed_dict_bits`` = width bits).  With ``cuckoo_bits`` >
-    0, ``uhash``/``uoff``/``loocc`` live in cuckoo-slot space and
-    ``boff`` is a dummy; otherwise ``uhash``/``uoff``/``boff`` form the
-    bucketed dictionary.  Packed layouts keep ``[1]`` zero dummies in
-    ``rid``/``pos``, as the reference does.  The per-sub range planes
-    ``lo``/``hi`` of the reference are not kept: the lookup's own
-    ranges feed the map (the ``pre_ranges`` form)."""
+    (``packed_rid_bits`` = pos_bits; never for wide keys), else
+    ``rid``/``pos`` hold the two planes.  ``loocc`` packs each unique
+    hash's posting-range start and width (``packed_dict_bits`` = width
+    bits); otherwise ``lo``/``hi`` hold the range planes.  With
+    ``cuckoo_bits`` > 0, ``uhash``/``uoff``/``loocc`` live in
+    cuckoo-slot space and ``boff`` is a dummy; otherwise
+    ``uhash``/``uoff``/``boff`` form the bucketed dictionary.  Wide
+    (PacBio/HPC, 2k = 38-bit) keys split into ``uhash`` = hash >> 19 and
+    ``uhash_lo`` = hash & 0x7FFFF and always take the bucketed
+    dictionary.  Packed layouts keep ``[1]`` zero dummies in the planes
+    they replace, as the reference does.  The fused ONT pipeline feeds
+    the map the lookup's own ranges (the ``pre_ranges`` form); the
+    PacBio pipeline reads them from ``found`` (:func:`found_ranges`)."""
 
     rid: torch.Tensor
     pos: torch.Tensor
@@ -191,8 +211,12 @@ class GroupedDeviceIndex:
     uhash: torch.Tensor
     uoff: torch.Tensor
     boff: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
     bucket_bits: int
     bucket_kmax: int
+    uhash_lo: torch.Tensor | None
+    wide: bool
     packed_rid_bits: int
     rps: torch.Tensor | None
     packed_dict_bits: int
@@ -203,19 +227,21 @@ class GroupedDeviceIndex:
     @classmethod
     def from_host(cls, index, device: torch.device, bucket_bits: int = 22):
         """Build the planes from a host ``TargetIndex`` (numpy) and move
-        them to ``device``; ``None`` when every posting was pruned."""
+        them to ``device``; ``None`` (logged at INFO) when every posting
+        was pruned or a wide index's bucketed dictionary cannot be built."""
         keys, rid, pos, strand = _pruned_postings(index)
         N = len(keys)
         if N == 0:
+            logger.info("no device index: every posting is above the occurrence cutoff")
             return None
         hash_bits = 2 * index.params.k
-        if hash_bits > 31:
-            raise NotImplementedError(
-                "wide (PacBio/HPC) keys on the device: ROADMAP.md item 11"
-            )
-        keys32 = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
-        ustart = np.flatnonzero(np.concatenate(([True], keys32[1:] != keys32[:-1])))
-        U = len(ustart)
+        wide = hash_bits > 31
+        if wide:
+            keys32 = None
+            ustart = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
+        else:
+            keys32 = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+            ustart = np.flatnonzero(np.concatenate(([True], keys32[1:] != keys32[:-1])))
         uoff = np.concatenate([ustart, [N]]).astype(np.int32)
         # the posting plane carries name ranks (the no-dual gate compares
         # ranks); one sub-index keeps the (key, rid, pos) order as it is
@@ -223,9 +249,14 @@ class GroupedDeviceIndex:
         rid_g = rank_of[rid]
         pos_g = (pos.astype(np.int32) << 1) | strand.astype(np.int32)
         occ = np.diff(uoff)
-        uh = keys32[ustart]
-        uh_u = (uh.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
-        uh_plane = uh
+        uh_lo = None
+        if wide:
+            uh_u = keys[ustart].astype(np.uint64)
+            uh_plane = (uh_u >> np.uint64(PB_SPLIT)).astype(np.int32)
+            uh_lo = (uh_u & np.uint64(PB_LOMASK)).astype(np.int32)
+        else:
+            uh_plane = keys32[ustart]
+            uh_u = (uh_plane.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
         kmax = 8
         if bucket_bits > 0 and hash_bits > bucket_bits:
             ub = (uh_u >> np.uint64(hash_bits - bucket_bits)).astype(np.int64)
@@ -239,13 +270,19 @@ class GroupedDeviceIndex:
         else:
             bucket_bits = 0
             boff = np.zeros(1, dtype=np.int32)
+        if wide and bucket_bits == 0:
+            # the wide lookup has no other dictionary
+            logger.info(
+                "no device index: the wide-key bucketed dictionary has a bucket of more than 16 keys"
+            )
+            return None
         no_pack = os.environ.get("LRGE_NO_PACK") == "1"
         T = len(index.name_rank)
         rid_bits = max(1, int(T - 1).bit_length()) if T else 1
         pos_bits = max(1, int(pos_g.max() >> 1).bit_length())
         packed_rid_bits = 0
         rps = None
-        if not no_pack and rid_bits + pos_bits + 1 <= 31:
+        if not no_pack and not wide and rid_bits + pos_bits + 1 <= 31:
             packed_rid_bits = pos_bits
             rps = (rid_g << (1 + pos_bits)) | pos_g
         occ_bits = max(1, int(occ.max()).bit_length())
@@ -255,10 +292,13 @@ class GroupedDeviceIndex:
         if not no_pack and lo_bits + occ_bits <= 31:
             packed_dict_bits = occ_bits
             loocc = (uoff[:-1] << occ_bits) | occ.astype(np.int32)
-        # 2-probe cuckoo dictionary; a non-convergent walk keeps the
-        # bucketed planes
+        # 2-probe cuckoo dictionary (narrow keys); a non-convergent walk
+        # keeps the bucketed planes
         cuckoo_bits = 0
-        if packed_dict_bits and hash_bits <= 30 and os.environ.get("LRGE_NO_CUCKOO") != "1":
+        if (
+            packed_dict_bits and not wide and hash_bits <= 30
+            and os.environ.get("LRGE_NO_CUCKOO") != "1"
+        ):
             built = _build_cuckoo(uh_u.astype(np.uint32))
             if built is not None:
                 cpos, cuckoo_bits = built
@@ -284,8 +324,12 @@ class GroupedDeviceIndex:
             uhash=put(uh_plane),
             uoff=put(uoff),
             boff=put(boff),
+            lo=put(dummy if packed_dict_bits else ustart),
+            hi=put(dummy if packed_dict_bits else uoff[1:]),
             bucket_bits=bucket_bits,
             bucket_kmax=kmax,
+            uhash_lo=put(uh_lo),
+            wide=wide,
             packed_rid_bits=packed_rid_bits,
             rps=put(rps),
             packed_dict_bits=packed_dict_bits,
@@ -298,12 +342,16 @@ class GroupedDeviceIndex:
     def from_jax_planes(cls, planes: dict, device: torch.device):
         """Carry a reference index across: ``planes`` maps the reference
         ``GroupedDeviceIndex`` field names to numpy arrays (0-d for the
-        integer fields; the single sub-index's array for ``loocc``;
-        ``rps``/``loocc`` absent or None when unpacked)."""
-        if int(planes.get("n_sub", 1)) != 1 or bool(planes.get("wide", False)):
-            raise NotImplementedError("multi-sub or wide indexes: ROADMAP.md items 11-12")
+        integer fields; the single sub-index's array for ``lo``, ``hi``
+        and ``loocc``; ``rps``/``loocc``/``uhash_lo`` absent or None when
+        unused)."""
+        if int(planes.get("n_sub", 1)) != 1:
+            raise NotImplementedError("multi-sub indexes: ROADMAP.md item 12")
         kw = {name: int(planes[name]) for name in _INT_FIELDS}
-        for name in ("rid", "pos", "rank", "uhash", "uoff", "boff", "rps", "loocc", "tlen"):
+        kw["wide"] = bool(planes.get("wide", False))
+        for name in (
+            "rid", "pos", "rank", "uhash", "uoff", "boff", "lo", "hi", "uhash_lo", "rps", "loocc", "tlen",
+        ):
             a = planes.get(name)
             kw[name] = None if a is None else torch.tensor(
                 np.asarray(a), dtype=torch.int32, device=device
@@ -405,6 +453,100 @@ def _q_occ_drop_narrow(mhash, mid_occ, q_occ_frac):
         & (cnt_by_slot > mid_occ)
         & (cnt_by_slot.to(torch.float32) > n_mini.to(torch.float32) * frac)
     )
+
+
+def _q_occ_drop_wide(qhi, qlo, pad, mid_occ, q_occ_frac):
+    """:func:`_q_occ_drop_narrow` over two-plane (wide) query hashes.  The
+    reference's stable two-key sort becomes one stable sort of ``hi <<
+    32 | lo`` (both planes < 2^19), padding folded above every real key."""
+    B, M = qhi.shape
+    dev = qhi.device
+    key = torch.where(pad, (IMAX << 32) | IMAX, (qhi << 32) | qlo)
+    sh, sslot = torch.sort(key, dim=1, stable=True)
+    pos = torch.arange(M, device=dev).expand(B, M)
+    ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    change = sh[:, 1:] != sh[:, :-1]
+    run_start = torch.cummax(torch.where(torch.cat([ones, change], 1), pos, -1), 1).values
+    run_end_at = torch.where(torch.cat([change, ones], 1), pos, IMAX)
+    run_end = torch.cummin(run_end_at.flip(1), 1).values.flip(1)
+    run_cnt = run_end - run_start + 1
+    cnt_by_slot = torch.empty_like(run_cnt).scatter_(1, sslot, run_cnt)
+    n_mini = (~pad).sum(dim=1)[:, None]
+    frac = torch.tensor(np.float32(q_occ_frac), device=dev)
+    return (
+        (n_mini > mid_occ)
+        & (cnt_by_slot > mid_occ)
+        & (cnt_by_slot.to(torch.float32) > n_mini.to(torch.float32) * frac)
+    )
+
+
+def _pb_probe(qhi, qlo, uh_hi, uh_lo, boff, *, hash_bits, bucket_bits, bucket_kmax):
+    """Bucketed dictionary probe for two-plane (wide) hashes: the
+    unique-hash slot per minimizer (-1 miss).  The bucket is the hash's
+    top ``bucket_bits``, taken from ``qhi`` alone or from both planes;
+    padding (``qhi`` = -1) clips to bucket 0.  Gates are the caller's."""
+    shift = hash_bits - bucket_bits
+    if shift >= PB_SPLIT:
+        ub = qhi >> (shift - PB_SPLIT)
+    else:
+        ub = (qhi << (PB_SPLIT - shift)) | (qlo >> shift)
+    ub = ub.clamp(0, (1 << bucket_bits) - 1)
+    bo = _gatherw(boff, ub, 2)
+    b0, b1 = bo[..., 0], bo[..., 1]
+    K = bucket_kmax
+    cstart = b0.clamp(0, max(uh_hi.shape[0] - K, 0))
+    win_hi = _gatherw(uh_hi, cstart, K)  # [B, M, K]
+    win_lo = _gatherw(uh_lo, cstart, K)
+    pos = cstart[..., None] + torch.arange(K, device=qhi.device)
+    hit = (
+        (pos >= b0[..., None]) & (pos < b1[..., None])
+        & (win_hi == qhi[..., None]) & (win_lo == qlo[..., None])
+    )
+    return torch.where(hit, pos, -1).max(dim=-1).values
+
+
+def pb_lookup_core(qhi, qlo, gi: GroupedDeviceIndex, *, hash_bits, q_occ_frac):
+    """Wide-key lookup of host-sketched query hashes (``[B, M]``, ``qhi``
+    -1 on padding): the unique-hash slot of each minimizer with the
+    occurrence gate, the padding gate and the q_occ filter applied (-1 =
+    no anchors)."""
+    qhi, qlo = qhi.long(), qlo.long()
+    pad = qhi < 0
+    found = _pb_probe(
+        qhi, qlo, gi.uhash, gi.uhash_lo, gi.boff, hash_bits=hash_bits,
+        bucket_bits=gi.bucket_bits, bucket_kmax=gi.bucket_kmax,
+    )
+    uo = _gatherw(gi.uoff, found.clamp(min=0), 2)
+    occg = torch.where(found >= 0, uo[..., 1] - uo[..., 0], 0)
+    gate = (found >= 0) & ~pad & (occg > 0) & (occg <= gi.mid_occ)
+    if q_occ_frac > 0:
+        gate = gate & ~_q_occ_drop_wide(qhi, qlo, pad, gi.mid_occ, q_occ_frac)
+    return torch.where(gate, found, -1)
+
+
+def pb_lookup_many(qhi, qlo, gi: GroupedDeviceIndex, *, hash_bits, q_occ_frac):
+    """:func:`pb_lookup_core` over a super-batch ``[NB, B, M]``, in one
+    pass over the flattened rows."""
+    NB, B, M = qhi.shape
+    return pb_lookup_core(
+        qhi.reshape(NB * B, M), qlo.reshape(NB * B, M), gi, hash_bits=hash_bits,
+        q_occ_frac=q_occ_frac,
+    ).reshape(NB, B, M)
+
+
+def found_ranges(found, gi: GroupedDeviceIndex):
+    """Each minimizer's posting range ``(lo, occ)`` from its unique-hash
+    slot (``found``, -1 = none: occ 0), through ``loocc`` or ``lo``/``hi``
+    (``map_found_core``'s own gather, overlap_jax.py:1652-1664)."""
+    fc = found.clamp(min=0)
+    if gi.packed_dict_bits:
+        lo_occ = _gather1(gi.loocc, fc)
+        lo = lo_occ >> gi.packed_dict_bits
+        occ = torch.where(found >= 0, lo_occ & ((1 << gi.packed_dict_bits) - 1), 0)
+    else:
+        lo = _gather1(gi.lo, fc)
+        occ = torch.where(found >= 0, _gather1(gi.hi, fc) - lo, 0)
+    return lo, occ
 
 
 def sketch_lookup_core(codes, lengths, gi: GroupedDeviceIndex, *, k, w, q_occ_frac):
@@ -517,14 +659,23 @@ def _extent_filter(f, rid_s, key2_s, valid_s, boundary, run_end, min_score, ext)
     return score_ok & ~dropped, score_ok.any(dim=1), suspicious
 
 
-def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs=False, extents=None):
+def _reduce_counts(
+    f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs=False, extents=None, cnt=None,
+    min_cnt=3,
+):
     """Per-row unique-target counts, the exactness flag (``W+1`` when
     some anchor's DP may have missed a predecessor outside the window,
-    a score reached the reduce's clip, or an ``-F`` decision is the
-    host's) and, with ``want_pairs``, the ``[B, min(A, PAIR_CAP)]``
-    plane of passing target ranks (-1 padded; ``None`` otherwise).
-    With ``extents`` the counts are filtered and carry the pre-filter
-    had-mapping bit at ``HAD_BIT``."""
+    a score reached the reduce's clip, or an ``-F`` or ``min_cnt``
+    decision is the host's) and, with ``want_pairs``, the ``[B, min(A,
+    PAIR_CAP)]`` plane of passing target ranks (-1 padded; ``None``
+    otherwise).  With ``extents`` the counts are filtered and carry the
+    pre-filter had-mapping bit at ``HAD_BIT``.  With ``cnt`` (the span
+    DP's chain anchor counts) a target also needs its best chain to hold
+    ``min_cnt`` anchors; a run whose best chain passes the score but not
+    ``min_cnt`` makes the row inexact, since a lower secondary chain
+    might pass (overlap_jax.py:928-942)."""
+    if extents is not None and cnt is not None:
+        raise ValueError("the -F extent filter is constant-span only")
     B, A = f.shape
     dev = f.device
     ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
@@ -532,9 +683,18 @@ def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs
     boundary = torch.cat([ones, change], 1)
     run_end = torch.cat([change, ones], 1)
     suspicious = None
-    if extents is None:
+    if extents is None and cnt is None:
         seg_f, _ = _seg_best(f, boundary)
         passing = run_end & valid_s & (seg_f >= min_score)
+        counts = passing.sum(dim=1)
+    elif cnt is not None:
+        # the chain that survives intact ends at the run's best-f anchor
+        # (largest slot among ties): read its anchor count there
+        best_f, best_slot = _seg_best(f, boundary, want_slot=True)
+        cnt_best = cnt.gather(1, best_slot)
+        score_ok = run_end & valid_s & (best_f >= min_score)
+        passing = score_ok & (cnt_best >= min_cnt)
+        suspicious = (score_ok & (cnt_best < min_cnt)).any(dim=1)
         counts = passing.sum(dim=1)
     else:
         passing, had_any, suspicious = _extent_filter(
@@ -563,14 +723,18 @@ def _reduce_counts(f, broke, rid_s, key2_s, valid_s, W, min_score, *, want_pairs
 
 def expand_sort(
     lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, *, k, num_anchors, no_dual,
-    no_diag,
+    no_diag, with_spans=False,
 ):
     """Anchor expansion of rows whose posting ranges ``(lo, occ)`` the
-    lookup already fetched (the reference's ``pre_ranges`` form,
-    packed_pos, rank postings), the dual/diag masks, and the stable
-    (key2, rpos) sort: the chain DP's ``[B, A]`` inputs.  Returns
-    ``(key2_s, rpos_s, qpos_s, valid_s, total)`` (int64, bool; ``total``
-    is each row's anchor count before the cap ``A = num_anchors``)."""
+    lookup already fetched (packed_pos, rank postings), the dual/diag
+    masks, and the stable (key2, rpos) sort: the chain DP's ``[B, A]``
+    inputs.  Returns ``(key2_s, rpos_s, qpos_s, valid_s, total)``
+    (int64, bool; ``total`` is each row's anchor count before the cap
+    ``A = num_anchors``).  With ``with_spans`` (the PacBio/HPC planes)
+    ``mps`` packs ``pos << 9 | span << 1 | strand``, a reverse anchor's
+    query position takes its own span, and ``qpos_s`` carries ``qpos <<
+    8 | span`` (packed after the no-diag mask, which compares the plain
+    position; overlap_jax.py:514-552)."""
     B, M = occ.shape
     A = num_anchors
     dev = occ.device
@@ -601,8 +765,13 @@ def expand_sort(
         rpos = torch.where(valid, pp >> 1, 0)
         tstrand = pp & 1
     strand = torch.where(valid, tstrand ^ (mps_f & 1), 0)
-    mq = mps_f >> 1
-    qpos = torch.where(strand == 0, mq, qlen[:, None] - mq + (k - 2))
+    if with_spans:
+        span_a = (mps_f >> 1) & 255
+        mq = mps_f >> 9
+        qpos = torch.where(strand == 0, mq, qlen[:, None] - mq + span_a - 2)
+    else:
+        mq = mps_f >> 1
+        qpos = torch.where(strand == 0, mq, qlen[:, None] - mq + (k - 2))
     # ---- masks (MM_F_NO_DUAL in rank space / no-diag)
     drop = torch.zeros_like(valid)
     if no_dual:
@@ -611,6 +780,8 @@ def expand_sort(
         drop = drop | (valid & (rid == qselfrid[:, None]) & (strand == 0) & (rpos == qpos))
     valid = valid & ~drop
     key2 = torch.where(valid, rid * 2 + strand, IMAX)
+    if with_spans:
+        qpos = (qpos << 8) | span_a
     # ---- stable sort by (key2, rpos): one int64 key (rpos >= 0)
     _, order = torch.sort((key2 << 32) | rpos, dim=1, stable=True)
     key2_s = key2.gather(1, order)
@@ -621,17 +792,23 @@ def map_found_core(
     lo, occ, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, pen_gap, *,
     k, max_gap, bw, min_score, num_anchors, window, no_dual, no_diag, max_chain_skip,
     want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
+    with_spans=False, min_cnt=3,
 ):
-    """Map rows whose posting ranges ``(lo, occ)`` the lookup already
-    fetched: :func:`expand_sort`, the chain DP, :func:`_reduce_counts`.
-    Returns ``(counts, n_anchors, max_run, pairs)``; ``n_anchors`` >
-    ``num_anchors`` flags overflow.  ``want_pairs`` and ``want_extents``
-    (the ``-F`` filter, with ``overhang_ratio`` and ``filter_mode``) are
-    as in :func:`_reduce_counts`; only ``want_extents`` launches the
-    kernel's extent variant."""
+    """Map rows whose posting ranges ``(lo, occ)`` are known (the ONT
+    lookup's own, or :func:`found_ranges`): :func:`expand_sort`, the
+    chain DP, :func:`_reduce_counts`.  Returns ``(counts, n_anchors,
+    max_run, pairs)``; ``n_anchors`` > ``num_anchors`` flags overflow.
+    ``want_pairs`` and ``want_extents`` (the ``-F`` filter, with
+    ``overhang_ratio`` and ``filter_mode``) are as in
+    :func:`_reduce_counts`.  ``with_spans`` (PacBio/HPC planes) chains
+    with per-anchor spans and gates targets on ``min_cnt``.
+    ``want_extents`` launches the kernel's extent variant,
+    ``with_spans`` its span variant."""
+    if want_extents and with_spans:
+        raise ValueError("the -F extent filter is constant-span only")
     key2_s, rpos_s, qpos_s, valid_s, total = expand_sort(
         lo, occ, mps, qlen, qdualrank, qselfrid, gi, k=k, num_anchors=num_anchors,
-        no_dual=no_dual, no_diag=no_diag,
+        no_dual=no_dual, no_diag=no_diag, with_spans=with_spans,
     )
     rid_s = torch.where(valid_s, key2_s >> 1, IMAX)
     # ---- chain DP (the CUDA kernel on the card)
@@ -639,7 +816,7 @@ def map_found_core(
     dp = chain_dp_skip(
         i32(key2_s), i32(rpos_s), i32(qpos_s), i32(valid_s), i32(valid_s.sum(dim=1)),
         pen_gap, span=k, max_gap=max_gap, bw=bw, max_skip=max_chain_skip, window=window,
-        extents=want_extents,
+        extents=want_extents, spans=with_spans,
     )
     f, broke = dp[0].long(), dp[1]
     extents = None
@@ -650,7 +827,8 @@ def map_found_core(
             ratio=overhang_ratio, span=k, mode=filter_mode,
         )
     counts, max_run, pairs = _reduce_counts(
-        f, broke, rid_s, key2_s, valid_s, window, min_score, want_pairs=want_pairs, extents=extents
+        f, broke, rid_s, key2_s, valid_s, window, min_score, want_pairs=want_pairs, extents=extents,
+        cnt=dp[2].long() if with_spans else None, min_cnt=min_cnt,
     )
     return counts, total, max_run, pairs
 
@@ -702,3 +880,68 @@ def sketch_map_many(
     if pairs is not None:
         pairs = pairs.reshape(NB, B, -1).to(torch.int32)
     return plane, pairs
+
+
+# ---------------------------------------------------------------------------
+# PacBio/HPC: host-sketched planes, wide-key lookup, map from ``found``
+# ---------------------------------------------------------------------------
+
+
+def map_found_many(
+    found, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window,
+    want_pairs=False,
+):
+    """:func:`map_found_core` with spans over a super-batch ``[NB, B, M]``
+    of PacBio/HPC lookup results, flattened to one row axis, with the
+    ranges read from ``found``.  Returns ``(counts, n_anchors, max_run,
+    pairs)``, each ``[NB, B]`` (pairs ``[NB, B, min(A, PAIR_CAP)]``, or
+    ``None``)."""
+    NB, B, M = found.shape
+    p = params
+    lo, occ = found_ranges(found.reshape(NB * B, M), gi)
+    out = map_found_core(
+        lo, occ, mps.reshape(NB * B, M).long(), qlen.reshape(-1).long(), qdualrank.reshape(-1).long(),
+        qselfrid.reshape(-1).long(), gi, p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw,
+        min_score=p.min_chain_score, num_anchors=num_anchors, window=window, no_dual=p.no_dual,
+        no_diag=p.no_diag, max_chain_skip=p.max_chain_skip, want_pairs=want_pairs,
+        with_spans=True, min_cnt=p.min_cnt,
+    )
+    return tuple(None if x is None else x.reshape(NB, B, *x.shape[1:]) for x in out)
+
+
+def pb_anchors(qhi, qlo, mps, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
+    """The span chain DP's inputs over a PacBio super-batch, as
+    :func:`pb_map_many` builds them: ``(key2_s, rpos_s, qpos_s,
+    valid_s)``, each ``[NB * B, num_anchors]``."""
+    NB, B, M = qhi.shape
+    p = params
+    found = pb_lookup_many(qhi, qlo, gi, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac)
+    lo, occ = found_ranges(found.reshape(NB * B, M), gi)
+    return expand_sort(
+        lo, occ, mps.reshape(NB * B, M).long(), lengths.reshape(-1).long(), qdualrank.reshape(-1).long(),
+        qselfrid.reshape(-1).long(), gi, k=p.k, num_anchors=num_anchors, no_dual=p.no_dual,
+        no_diag=p.no_diag, with_spans=True,
+    )[:4]
+
+
+def pb_map_many(
+    qhi, qlo, mps, mcount, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *,
+    num_anchors, window, want_pairs=False,
+):
+    """Whole PacBio/HPC pipeline over a super-batch of host-sketched
+    planes (``[NB, B, M]`` int32: ``qhi``/``qlo`` the 38-bit hash split
+    at bit 19, -1 padding; ``mps`` = ``pos << 9 | span << 1 | strand``;
+    ``mcount`` ``[NB, B]`` the true minimizer counts): the wide-key
+    lookup (:func:`pb_lookup_many`), then :func:`map_found_many` with
+    spans.  Returns the ``[NB, B, 4]`` int32 plane (counts, n_anchors,
+    max_run, mcount) and, with ``want_pairs``, the pair plane (else
+    ``None``), as :func:`sketch_map_many` does."""
+    NB, B, _ = qhi.shape
+    p = params
+    found = pb_lookup_many(qhi, qlo, gi, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac)
+    counts, n_anchors, max_run, pairs = map_found_many(
+        found, mps, lengths, qdualrank, qselfrid, gi, p, num_anchors=num_anchors, window=window,
+        want_pairs=want_pairs,
+    )
+    plane = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1).to(torch.int32)
+    return plane, None if pairs is None else pairs.to(torch.int32)

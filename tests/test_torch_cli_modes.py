@@ -1,10 +1,12 @@
-"""All-vs-all, ``--use-min-ref`` and ``-F`` through the PyTorch port's CLI vs the JAX reference.
+"""All-vs-all, ``--use-min-ref``, ``-F`` and PacBio through the PyTorch port's CLI vs the JAX reference.
 
 ``python -m lrge_tpu_torch`` prints what ``python -m lrge_tpu --engine
 host`` prints for ``-n``, ``--use-min-ref``, ``-F``, ``-n -F`` and
-``--use-min-ref -F`` on the verify corpus, both on the port's host
-engine and on its device path (here on the CPU); each device run is a
-fresh interpreter that loads no ``jax`` and no ``lrge_tpu`` module.
+``--use-min-ref -F``, and with ``-P pb`` for two-set, ``-n``,
+``--use-min-ref`` and ``-F`` (which the device engine routes to the
+host, as the reference does), on the verify corpus, both on the port's
+host engine and on its device path (here on the CPU); each device run
+is a fresh interpreter that loads no ``jax`` and no ``lrge_tpu`` module.
 """
 
 import os
@@ -29,6 +31,10 @@ MODES = {
     "filter": [*ARGS, "-F"],
     "ava_filter": ["-n", "200", *SEED, "-F"],
     "inverse_filter": [*ARGS, "--use-min-ref", "-F"],
+    "pacbio": [*ARGS, "-P", "pb"],
+    "pacbio_ava": ["-n", "200", *SEED, "-P", "pb"],
+    "pacbio_inverse": [*ARGS, "--use-min-ref", "-P", "pb"],
+    "pacbio_filter": [*ARGS, "-P", "pb", "-F"],
 }
 
 

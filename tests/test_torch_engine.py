@@ -7,8 +7,9 @@
   prints what ``python -m lrge_tpu --engine host`` prints, byte for
   byte; a fresh interpreter running the port's CLI, on the device or
   the host engine, loads neither JAX nor any ``lrge_tpu`` module.
-* Modes outside the port so far (PacBio on the device, several hosts)
-  raise; nothing falls back to another engine.
+* Modes outside the port so far (several hosts) raise; nothing falls
+  back to another engine.  (PacBio on the device:
+  ``tests/test_torch_cli_modes.py`` and ``tests/test_torch_pacbio.py``.)
 """
 
 import gzip
@@ -225,9 +226,6 @@ def test_device_engine_without_cuda_raises(verify_reads):
 @pytest.mark.parametrize(
     "extra,env,item",
     [
-        (["-P", "pb", "--engine", "device"], {}, "item 11"),
-        (["-n", "100", "-P", "pb", "--engine", "device"], {}, "item 11"),
-        (["--use-min-ref", "-P", "pb", "--engine", "device"], {}, "item 11"),
         ([], {"LRGE_COORDINATOR": "localhost:1234"}, "item 13"),
     ],
 )

@@ -1,9 +1,12 @@
 """The chain DP wrapper and the CUDA kernel (imports only the port: runs on the card too).
 
-On the CPU: the wrapper's input checks and its per-row stop.  On a CUDA
-card (marker ``gpu``; skipped without one): the kernel equals the plain
-version bit for bit at every window, and the device engine's counts
-equal the exact host engine's.  On the card:
+On the CPU: the wrapper's input checks and its per-row stop, the span
+variant's plain version at a constant span (it must be the main one's,
+with the extent variant's ``cnt``), and the build report's parse of
+every kernel instance.  On a CUDA card (marker ``gpu``; skipped without
+one): each variant equals its plain version bit for bit at every
+window, and the device engine's counts equal the exact host engine's
+(ONT and PacBio).  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernel.py
 """
@@ -17,7 +20,7 @@ torch.set_num_threads(1)
 
 from lrge_tpu_torch.device_engine import DeviceOverlapEngine
 from lrge_tpu_torch.engine import OverlapEngine
-from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip, chain_dp_skip_plain
+from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip, chain_dp_skip_plain, ptxas_report
 from lrge_tpu_torch.ops.index import build_index
 from lrge_tpu_torch.platform import AVA_ONT, Platform, preset_for
 
@@ -77,6 +80,46 @@ def test_rows_stop_at_their_own_count():
         assert torch.equal(f[b, :n], f_full[b, :n])
 
 
+def with_spans(args, rng, lo=19, hi=61):
+    """The rows' ``qpos`` packed with per-anchor spans in ``[lo, hi)``."""
+    out = list(args)
+    out[2] = (args[2] << 8) | torch.from_numpy(rng.integers(lo, hi, tuple(args[2].shape)).astype(np.int32))
+    return out
+
+
+def test_plain_span_variant_at_constant_span_is_the_main_one():
+    # every anchor at span k: f and broke of the main variant, cnt of the
+    # extent variant
+    for seed, colinear in ((0, False), (7, True)):
+        args = anchor_rows(np.random.default_rng(seed), 12, 300, colinear=colinear)
+        args.append(args[3].sum(dim=1).to(torch.int32))
+        packed = with_spans(args, np.random.default_rng(0), KW["span"], KW["span"] + 1)
+        f, broke, cnt = chain_dp_skip(*packed, AVA_ONT.chn_pen_gap(), window=64, spans=True, **KW)
+        ext = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=64, extents=True, **KW)
+        assert torch.equal(f, ext[0]) and torch.equal(broke, ext[1]) and torch.equal(cnt, ext[2])
+        # spans that vary give other scores
+        varied = chain_dp_skip(*with_spans(args, np.random.default_rng(1)), AVA_ONT.chn_pen_gap(), window=64,
+                               spans=True, **KW)
+        assert not torch.equal(varied[0], f)
+
+
+def test_ptxas_report_names_every_instance(tmp_path):
+    # the build's -Xptxas -v log, one instance of each kernel and variant
+    lines = []
+    for name in ("chain_dp_kernelILi32ELi0EEEvNS_4ArgsEPKyPKiS5_Pi", "chain_dp_kernelILi64ELi2EEEvNS_4ArgsE",
+                 "find_runs_kernelILi1EEEvNS_4ArgsEPyPiS3_"):
+        lines += [
+            f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115{name}' for 'sm_90a'",
+            "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+            "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+            "ptxas info    : Used 40 registers, used 0 barriers, 456 bytes cmem[0]",
+        ]
+    so = tmp_path / "chain_dp-x.so"
+    so.with_suffix(".ptxas.txt").write_text("\n".join(lines))
+    frame = "40 registers, 8 B stack, 4 B spill stores, 12 B spill loads"
+    assert ptxas_report(so) == [f"W=32 base: {frame}", f"W=64 span: {frame}", f"find_runs ext: {frame}"]
+
+
 @pytest.mark.parametrize(
     "bad,match",
     [
@@ -95,6 +138,8 @@ def test_wrapper_rejects_bad_inputs(bad, match):
         chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=32, **KW)
     with pytest.raises(ValueError, match="window"):
         chain_dp_skip(*good, AVA_ONT.chn_pen_gap(), window=48, **KW)
+    with pytest.raises(ValueError, match="constant-span"):
+        chain_dp_skip(*good, AVA_ONT.chn_pen_gap(), window=32, extents=True, spans=True, **KW)
 
 
 @pytest.mark.gpu
@@ -136,6 +181,25 @@ def test_cuda_extent_kernel_matches_plain(window):
         assert (want[4][0] & 1).any(), "row 0 must carry a valley"
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [16, 32, 64, 128])
+def test_cuda_span_kernel_matches_plain(window):
+    need_cuda()
+    for seed, colinear in ((0, False), (7, True)):
+        args = anchor_rows(np.random.default_rng(seed), 37, 300, colinear=colinear)
+        args.append(args[3].sum(dim=1).to(torch.int32))
+        args = with_spans(args, np.random.default_rng(seed + 1))
+        before = (chain_dp_skip.span_launches, chain_dp_skip.launches, chain_dp_skip.ext_launches)
+        got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window, spans=True, **KW)
+        torch.cuda.synchronize()
+        after = (chain_dp_skip.span_launches, chain_dp_skip.launches, chain_dp_skip.ext_launches)
+        assert after == (before[0] + 1, *before[1:])
+        want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, spans=True, **KW)
+        for name, g, w in zip(("f", "broke", "cnt"), got, want):
+            assert torch.equal(g.cpu(), w), name
+        assert (want[2] > 1).any(), "chains must grow past one anchor"
+
+
 def edge_run_rows(rng, B, A):
     """Row 0 is one run of length A (colinear, so the chain and the skip
     break reach deep); rows 1.. are runs of one anchor each (every key2
@@ -155,17 +219,19 @@ def edge_run_rows(rng, B, A):
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [16, 32, 64, 128])
 def test_cuda_kernel_edge_runs_match_plain(window):
-    # one run as long as the row, and rows of one-anchor runs, both variants
+    # one run as long as the row, and rows of one-anchor runs, every
+    # variant (the span one at spans of 19-60)
     need_cuda()
     args = edge_run_rows(np.random.default_rng(window), 9, 512)
-    for extents in (False, True):
-        got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window,
-                            extents=extents, **KW)
+    spanned = with_spans(args, np.random.default_rng(window + 1))
+    for mode, rows in ((dict(), args), (dict(extents=True), args), (dict(spans=True), spanned)):
+        got = chain_dp_skip(*[a.cuda() for a in rows], AVA_ONT.chn_pen_gap(), window=window, **mode, **KW)
         torch.cuda.synchronize()
-        want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, extents=extents, **KW)
+        want = chain_dp_skip(*rows, AVA_ONT.chn_pen_gap(), window=window, **mode, **KW)
         for name, g, w in zip(("f", "broke", "cnt", "start", "rmf"), got, want):
-            assert torch.equal(g.cpu(), w), (name, extents)
-        assert (want[0][1:-1] == KW["span"]).all(), "one-anchor runs score span"
+            assert torch.equal(g.cpu(), w), (name, mode)
+        one = want[0][1:-1] == (rows[2][1:-1] & 255 if mode.get("spans") else KW["span"])
+        assert one.all(), "one-anchor runs score their span"
         if window >= 64:
             assert want[1][0].any(), "the long run must fire the skip break"
 
@@ -194,6 +260,15 @@ def test_engine_on_card_matches_host():
     before = chain_dp_skip.launches
     res = dev.count_batch(qnames, queries)
     assert chain_dp_skip.launches > before
+    host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
+    np.testing.assert_array_equal(res.counts, [c for c, _ in host])
+    np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
+    # the PacBio/HPC preset on the same reads: the span variant
+    index = build_index(targets, tnames, preset_for(Platform.PACBIO, dual=True))
+    dev = DeviceOverlapEngine(index, device=torch.device("cuda"), batch_size=16, length_buckets=(4096,))
+    before = chain_dp_skip.span_launches
+    res = dev.count_batch(qnames, queries)
+    assert chain_dp_skip.span_launches > before
     host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
     np.testing.assert_array_equal(res.counts, [c for c, _ in host])
     np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])

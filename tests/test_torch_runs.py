@@ -7,8 +7,11 @@
   on a random corpus, on a colinear corpus whose runs fire the skip
   break, and on the edges of the kernel's 32-slot chunks (one run as
   long as the row, one-anchor runs, runs of 31, 32 and 33 anchors that
-  start on and just before a chunk's edge, an empty row).  (The outputs
-  are shift-invariant: the marked set uses only ``(i - 1) - ring_p``.)
+  start on and just before a chunk's edge, an empty row); and the span
+  variant (``spans=True``: ``f``, ``broke``, ``cnt``) on colinear runs
+  whose anchors carry spans of 19-60, packed into ``qpos``.  (The
+  outputs are shift-invariant: the marked set uses only ``(i - 1) -
+  ring_p``.)
 
 Integer outputs throughout: tolerance 0.
 """
@@ -99,7 +102,23 @@ def chunk_edge_rows(rng, B, A):
     return key2, rpos, qpos, valid
 
 
-CORPORA = {"random": random_rows, "colinear": colinear_rows, "chunk_edges": chunk_edge_rows}
+def span_rows(rng, B, A):
+    """:func:`colinear_rows` whose anchors carry their own span (19-60,
+    the PacBio/HPC range), packed as ``qpos << 8 | span``."""
+    key2, rpos, qpos, valid = colinear_rows(rng, B, A)
+    return key2, rpos, (qpos << 8) | rng.integers(19, 61, (B, A)).astype(np.int32), valid
+
+
+CORPORA = {"random": random_rows, "colinear": colinear_rows, "chunk_edges": chunk_edge_rows, "spans": span_rows}
+
+
+def variant(corpus):
+    """The chain DP's keywords and outputs for a corpus: the span variant
+    for the span corpus, the extent variant (which holds the main one's
+    f and broke) for the others."""
+    if corpus == "spans":
+        return dict(spans=True), OUTS[:3]
+    return dict(extents=True), OUTS
 
 
 @pytest.mark.parametrize("corpus", list(CORPORA))
@@ -110,7 +129,8 @@ def test_runs_walked_alone_equal_the_row_walk(corpus, window):
     key2, rpos, qpos, valid = CORPORA[corpus](rng, B, A)
     nvalid = (key2 != IMAX).sum(axis=1).astype(np.int32)
     t = torch.from_numpy
-    kw = dict(KW, window=window, extents=True)
+    mode, outs = variant(corpus)
+    kw = dict(KW, window=window, **mode)
     whole = chain_dp_skip_plain(t(key2), t(rpos), t(qpos), t(valid), t(nvalid), AVA_ONT.chn_pen_gap(), **kw)
 
     runs = runs_of(key2, nvalid)
@@ -123,7 +143,8 @@ def test_runs_walked_alone_equal_the_row_walk(corpus, window):
     lens = np.array([n for _, _, n in runs], np.int32)
     alone = chain_dp_skip_plain(*map(t, cut), t(lens), AVA_ONT.chn_pen_gap(), **kw)
 
-    for name, w, a in zip(OUTS, whole, alone):
+    assert len(whole) == len(outs)
+    for name, w, a in zip(outs, whole, alone):
         back = np.full((B, A), NEG if name == "f" else 0, np.int32)
         for r, (b, s, n) in enumerate(runs):
             back[b, s : s + n] = a[r, :n].numpy()
@@ -141,8 +162,9 @@ def test_runs_walked_alone_equal_the_row_walk(corpus, window):
 @pytest.mark.parametrize("corpus", list(CORPORA))
 @pytest.mark.parametrize("window", [16, 32, 64, 128])
 def test_cuda_kernel_on_these_runs_matches_plain(corpus, window):
-    # the kernel finds the runs itself, in 32-slot chunks: both variants
-    # against the plain row walk on the corpora above
+    # the kernel finds the runs itself, in 32-slot chunks: each variant
+    # against the plain row walk on the corpora above (the span variant
+    # on the span corpus)
     from lrge_tpu_torch.ops.chain_kernel import chain_dp_skip
 
     if not torch.cuda.is_available():
@@ -151,9 +173,14 @@ def test_cuda_kernel_on_these_runs_matches_plain(corpus, window):
     rows = CORPORA[corpus](rng, 10, 240)
     nvalid = (rows[0] != IMAX).sum(axis=1).astype(np.int32)
     args = [torch.from_numpy(a) for a in (*rows, nvalid)]
-    for extents in (False, True):
-        kw = dict(KW, window=window, extents=extents)
+    modes = [variant(corpus)[0]] if corpus == "spans" else [{}, dict(extents=True)]
+    for mode in modes:
+        kw = dict(KW, window=window, **mode)
+        before = chain_dp_skip.span_launches
         got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), **kw)
+        torch.cuda.synchronize()
+        assert chain_dp_skip.span_launches == before + bool(mode.get("spans"))
         want = chain_dp_skip_plain(*args, AVA_ONT.chn_pen_gap(), **kw)
+        assert len(got) == len(want)
         for name, g, w in zip(OUTS, got, want):
-            assert torch.equal(g.cpu(), w), (name, extents)
+            assert torch.equal(g.cpu(), w), (name, mode)

@@ -1,18 +1,22 @@
 """Where the device time of the main path's ``count_batch`` goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [-P {ont,pb}]
+    python3 chip_profile.py [-P {ont,pb}] [--accurate]
 
 Builds ``chip_smoke.py``'s phase-4 configuration (the synthetic 4.4 Mbp
 genome, 15,000 reads, seed 6, two-set ``-T 10000 -Q 5000``; with ``-P
-pb`` its phase-8 PacBio/HPC run on the same corpus), warms the device
-engine up, times three warm ``count_batch`` passes over the 5,000
-queries with the host clock, then runs one more pass under
-``torch.profiler`` and prints the wall of that pass, the device time by
-kernel (the top 15, and the chain DP's own kernels), the device's idle
-share (1 - summed kernel time / wall) and the chain DP's launches in
-the pass.  Under ``-P pb`` it also times the host sketch of the same
-queries (``_pb_planes``, which the pass runs per super-batch).  Without
-CUDA it exits 1.
+pb`` its phase-8 PacBio/HPC run on the same corpus; with
+``--accurate`` phase 9's reads, mean 10 kb at 1% substitutions, whose
+index splits into sub-indexes), warms the device engine up, times three
+warm ``count_batch`` passes over the 5,000 queries with the host clock,
+then runs one more pass under ``torch.profiler`` and prints the wall of
+that pass, the device time by kernel (the top 15, and the chain DP's
+own kernels), the device's idle share (1 - summed kernel time / wall)
+and the chain DP's launches in the pass.  Under ``-P pb`` it also times
+the host sketch of the same queries (``_pb_planes``, which the pass
+runs per super-batch).  On a multi-sub index it also times, on the
+first super-batch of the fullest bucket, the shared lookup and each
+sub's map alone (host clock around a synchronised call, mean of 3).
+Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -37,10 +41,55 @@ def device_us(evt) -> float:
     return 0.0
 
 
+def sub_costs(engine, names, seqs) -> None:
+    """The shared lookup and each sub's map alone, on the first
+    super-batch of the fullest bucket: ms of a synchronised call, mean of
+    3 after one warm-up."""
+    from lrge_tpu_torch.ops.overlap import (
+        map_found_many, minimizer_cap, pack2bit_host, pb_lookup_many, sketch_lookup_many,
+    )
+
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
+    dual, selfr = engine.query_ranks(names)
+    _, A, codes, lengths, ids, dual_b, selfr_b = next(engine.super_batches(L, bucket_rows[L], seqs, dual, selfr))
+    put = lambda a: torch.from_numpy(a).to(engine.device)
+    gd, p = engine.gdev, engine.params
+    if engine.pb_mode:
+        planes = engine._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
+        qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
+        lookup = lambda: (pb_lookup_many(qhi, qlo, gd, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac), mps)
+    else:
+        codes_p, lengths_d = put(pack2bit_host(codes)), put(lengths)
+        lookup = lambda: sketch_lookup_many(codes_p, lengths_d, gd, p)[:2]
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3, out
+
+    t, (found, mps) = ms(lookup)
+    live = put(ids >= 0)
+    print(f"[profile] bucket L={L}, [{ids.size}, {A}] anchors a sub: shared lookup {t:.3f} ms", flush=True)
+    args = [put(a) for a in (lengths, dual_b, selfr_b)]
+    for s in range(gd.n_sub):
+        t, out = ms(lambda: map_found_many(
+            found, mps, *args, gd, p, num_anchors=A, window=engine.window, with_spans=engine.pb_mode, sub=s,
+        ))
+        over = int(((out[1] > A) & live).sum())
+        print(f"[profile] sub {s} map: {t:.3f} ms, rows over A {over} of {int(live.sum())}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("-P", "--platform", choices=("ont", "pb"), default="ont",
                     help="the preset of the profiled run (default %(default)s)")
+    ap.add_argument("--accurate", action="store_true",
+                    help="phase 9's corpus: mean 10 kb, 1%% substitutions, a multi-sub index")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -65,13 +114,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_profile-") as tmp:
         tmp = Path(tmp)
         fq = tmp / "reads.fq"
-        cs.write_corpus(fq, cs.READS)
+        if args.accurate:
+            cs.write_corpus(fq, cs.READS, mean_len=cs.ACC_MEAN_LEN, err=cs.ACC_ERR)
+        else:
+            cs.write_corpus(fq, cs.READS)
         strat = TwoSetStrategy(fq, target_num_reads=cs.T, query_num_reads=cs.Q, seed=cs.SEED, tmpdir=tmp,
                                platform=platform)
         targets, queries, _ = strat.split_fastq()
         engine = device_engine.DeviceOverlapEngine(strat._build_engine(targets).index, device=dev)
         names = [n for n, _ in queries]
         seqs = [s for _, s in queries]
+        print(f"[profile] n_sub {engine.gdev.n_sub}", flush=True)
         engine.warmup([len(s) for s in seqs])
         for i in range(3):
             torch.cuda.synchronize()
@@ -84,6 +137,8 @@ def main(argv=None) -> int:
             engine._pb_planes(seqs, minimizer_cap(max(engine.length_buckets)))
             print(f"[profile] host sketch of the {len(seqs)} queries (_pb_planes): "
                   f"{time.perf_counter() - t0:.4f} s", flush=True)
+        if engine.gdev.n_sub > 1:
+            sub_costs(engine, names, seqs)
         setattr(ck.chain_dp_skip, counter, 0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

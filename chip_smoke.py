@@ -13,7 +13,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    on a colinear skip-break corpus (W = 64) and, once phase 4 (phase 8
    for the span variant) has built its index, on that path's own
    anchors (one super-batch of its fullest bucket through the port's
-   sketch or host planes, lookup, expansion and sort): ``f`` and
+   sketch or host planes, lookup, expansion and sort; the main variant
+   also on phase 9's, the first sub of its multi-sub index): ``f`` and
    ``broke``, for the extent variant also ``cnt``, ``start`` and
    ``rmf``, for the span variant (anchors with spans of 19-60, packed
    into ``qpos``) also ``cnt``, must be bit-equal (tolerance 0, integer
@@ -36,21 +37,35 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    each held against the host;
 7. ``-n 25000`` (all-vs-all at the reference's default) through the CLI
    on 26,000 reads from the same genome, then the all-vs-all engine
-   alone: a timed pair-list pass and a ``-F`` pass, 300 rows each held
-   against the host;
+   alone: a timed pair-list pass, and a ``-F`` pass over the first
+   5,000 reads of the subsample (its host recompute is ``map_read``),
+   300 rows each held against the host;
 8. the PacBio/HPC preset (``-P pb``) on phase 4's corpus and run shape
    through the CLI (its estimate must equal the host engine's), then a
    timed pass of its engine, a ``--use-min-ref`` pair-list pass, and an
    all-vs-all pair-list pass on the first 5,000 reads of phase 7's
    subsample (``--pb-ava-reads`` sets the count), 300 rows each held
-   against the host.
+   against the host;
+9. accurate reads: 15,000 reads of phase 4's genome at mean 10 kb and
+   1% substitutions (current ONT R10.4.1 or PacBio data), ``-T 10000
+   -Q 5000`` through the CLI, then for ONT and for ``-P pb`` the index,
+   whose expected anchors split it into sub-indexes (``n_sub`` must be
+   2 or more), its planes' build time and size, and a timed engine
+   pass whose variant must launch ``n_sub`` times a super-batch.  The
+   ONT pass's rows must all equal the exact host engine's, and the
+   estimate of those host counts must be the CLI's (``--engine host``
+   through the CLI maps every query with ``map_read`` on threads, which
+   takes minutes on these reads); the PacBio pass holds 300 rows to the
+   host.  No ``-F`` pass: on a multi-sub index ``-F`` runs on the host,
+   as in the reference.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
 too (counts reset just before it, read just after).  Each phase prints
-its wall time.  The line before the last is the kernels' JSON record;
-the last line is ``{"ok": true, "device": {...}}``.  Without CUDA it
-exits 1 and prints no result.
+its wall time.  The line before the last is the kernels' JSON record
+(the main variant's also carries phase 9's case and CLI launches under
+``multi_sub_path``); the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -73,6 +88,8 @@ GENOME = 4_400_000  # bp of the synthetic genome
 READS, T, Q = 15_000, 10_000, 5_000  # two-set corpus and run shape
 AVA_READS, AVA_N = 26_000, 25_000  # all-vs-all corpus and -n
 PB_AVA_READS = 5_000  # phase 8's all-vs-all rows (the first of phase 7's subsample)
+AVA_FILTER_READS = 5_000  # phase 7's all-vs-all -F rows (the first of its subsample)
+ACC_MEAN_LEN, ACC_ERR = 10_000, 0.01  # phase 9's reads: mean 10 kb, 1% substitutions
 SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # the synthetic cases' gap penalty (the main path's is the preset's)
@@ -230,13 +247,13 @@ def kernel_vs_plain(ck, dev, **mode):
     return recs
 
 
-def main_path_case(ck, engine, names, seqs, recs, **mode):
+def main_path_case(ck, engine, names, seqs, recs, key="main_path", **mode):
     """Phase 3's fourth case: the chain DP's inputs of one super-batch of
-    ``engine``'s path (the first of the bucket with most rows) as the
-    path builds them (ONT: the device sketch; PacBio: the host planes),
-    through the variant that ``mode`` names; adds ``"main_path"`` to
-    ``recs`` and prints the critical-path floor (longest run x the step
-    latency)."""
+    ``engine``'s path (the first of the bucket with most rows; on a
+    multi-sub index its first sub) as the path builds them (ONT: the
+    device sketch; PacBio: the host planes), through the variant that
+    ``mode`` names; adds ``key`` to ``recs`` and prints the
+    critical-path floor (longest run x the step latency)."""
     from lrge_tpu_torch.ops.overlap import minimizer_cap, pack2bit_host, pb_anchors, sketch_anchors
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
@@ -250,22 +267,24 @@ def main_path_case(ck, engine, names, seqs, recs, **mode):
         key2, rpos, qpos, valid = pb_anchors(
             qhi, qlo, mps, put(lengths), put(dual_b), put(selfr_b), engine.gdev, engine.params, num_anchors=A,
         )
-        name = f"pacbio main_path (bucket L={L})"
+        name = "pacbio "
     else:
         key2, rpos, qpos, valid = sketch_anchors(
             put(pack2bit_host(codes)), put(lengths), put(dual_b), put(selfr_b), engine.gdev,
             engine.params, num_anchors=A,
         )
-        name = f"main_path (bucket L={L})"
+        name = ""
+    subs = f", sub 0 of {engine.gdev.n_sub}" if engine.gdev.n_sub > 1 else ""
+    name += f"{key} (bucket L={L}{subs})"
     i32 = lambda x: x.to(torch.int32).contiguous()
     tag = TAGS[variant_of(mode)]
     p = engine.params
     kw = dict(span=p.k, max_gap=p.max_gap, bw=p.bw, max_skip=p.max_chain_skip, **mode)
     rec = kernel_case(ck, tag, name, [i32(x) for x in (key2, rpos, qpos, valid)], engine.window, kw,
                       pen_gap=p.chn_pen_gap())
-    print(f"[{tag}] main_path critical-path floor: longest run {rec['max_run']} x "
+    print(f"[{tag}] {key} critical-path floor: longest run {rec['max_run']} x "
           f"{recs['step_us']:.4f} us = {rec['max_run'] * recs['step_us'] / 1e3:.4f} ms", flush=True)
-    recs["main_path"] = rec
+    recs[key] = rec
 
 
 def make_reads(rng, genome, n, mean_len, err):
@@ -288,9 +307,11 @@ def make_reads(rng, genome, n, mean_len, err):
     return reads
 
 
-def write_corpus(path: Path, n_reads: int, genome_size: int = GENOME) -> None:
+def write_corpus(path: Path, n_reads: int, genome_size: int = GENOME, mean_len: int = 2500,
+                 err: float = 0.05) -> None:
     """A genome with a dispersed 2 kb five-copy family and a 400 bp x 5
-    tandem block; reads at mean 2.5 kb and 5% substitutions."""
+    tandem block; reads at mean ``mean_len`` (gamma(3), clipped to 500 bp
+    - 30 kb) and ``err`` substitutions."""
     rng = np.random.default_rng(SEED)
     genome = bytearray(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=genome_size, dtype=np.uint8)].tobytes())
     fam = bytes(genome[100_000:102_000])
@@ -299,7 +320,7 @@ def write_corpus(path: Path, n_reads: int, genome_size: int = GENOME) -> None:
         genome[pos : pos + 2_000] = fam
     unit = bytes(genome[200_000:200_400])
     genome[300_000:302_000] = unit * 5
-    reads = make_reads(rng, bytes(genome), n_reads, 2500, 0.05)
+    reads = make_reads(rng, bytes(genome), n_reads, mean_len, err)
     with open(path, "wb") as fh:
         for i, s in enumerate(reads):
             fh.write(b"@r%d\n%s\n+\n%s\n" % (i, s, b"I" * len(s)))
@@ -492,8 +513,9 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
 
 def ava_path(ck, dev, gpu_line, fq):
     """Phase 7: ``-n 25000`` on the 26,000 reads of ``fq``, then the
-    all-vs-all engine alone (pairs, and pairs under ``-F``); returns the
-    subsample."""
+    all-vs-all engine alone (pairs over the whole subsample, and pairs
+    under ``-F`` over its first ``AVA_FILTER_READS`` reads, against the
+    same index); returns the subsample."""
     from lrge_tpu_torch.strategy import AvaStrategy
 
     tmp = fq.parent
@@ -508,10 +530,13 @@ def ava_path(ck, dev, gpu_line, fq):
     res, pairs, report = timed_pass("ava", engine, names, seqs, pairs=True)
     check_sample("ava", engine, names, seqs, res, pairs)
     print(f"[ava] engine: {report} ({gpu_line})", flush=True)
-    engine.warmup(lens, filter_ratio=0.2, want_pairs=True)
+    # the -F host recompute is map_read in Python over every overflow
+    # row (~70% of them): the pass streams the first AVA_FILTER_READS
+    names, seqs = names[:AVA_FILTER_READS], seqs[:AVA_FILTER_READS]
+    engine.warmup(lens[:AVA_FILTER_READS], filter_ratio=0.2, want_pairs=True)
     res, pairs, report = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
     check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
-    print(f"[ava -F] engine: {report} ({gpu_line})", flush=True)
+    print(f"[ava -F] engine, first {len(seqs)} reads: {report} ({gpu_line})", flush=True)
     return reads
 
 
@@ -568,6 +593,96 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     return launches["span"]
 
 
+def super_batch_count(engine, seqs) -> int:
+    """The super-batches that one ``count_batch`` pass over ``seqs``
+    dispatches (its row plan, batches of ``batch_size``, ``SUP`` batches
+    a super-batch)."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    n = 0
+    for L, rows in bucket_rows.items():
+        batches = -(-len(rows) // engine.batch_size)
+        n += -(-batches // engine.bucket_shape(L)[1])
+    return n
+
+
+def check_all_and_estimate(tag, engine, names, seqs, res, avg_target_len, cli_out):
+    """Every row against the exact host engine (native counts, threaded),
+    then the estimate of those host counts (the two-set estimator: per-read
+    estimates, finite ones, median) against the CLI's printed estimate.
+    This stands in for ``--engine host`` through the CLI, whose
+    ``map_read`` on threads (CUDA is live) takes minutes on these reads."""
+    from lrge_tpu_torch.estimate import median, per_read_estimate_batch
+
+    t0 = time.perf_counter()
+    host = engine.host.count_overlaps_many(list(zip(names, seqs)))
+    t_host = time.perf_counter() - t0
+    counts = np.array([c for c, _ in host])
+    bad = np.flatnonzero((res.counts != counts) | (res.had_mapping != np.array([bool(h) for _, h in host])))
+    if len(bad):
+        fail(f"[{tag}] {len(bad)} rows differ from the host engine, first {bad[0]}")
+    est = per_read_estimate_batch(
+        np.array([len(s) for s in seqs]), avg_target_len, T, counts, engine.params.min_chain_score,
+    ).astype(np.float32)
+    host_est = f"{median(est[np.isfinite(est)])[1]:.0f}\n"
+    if cli_out.read_text() != host_est:
+        fail(f"[{tag}] the CLI's estimate {cli_out.read_text().strip()} != the host counts' {host_est.strip()}")
+    print(f"[{tag}] all {len(seqs)} rows equal the host engine's (native host counts {t_host:.1f} s); their "
+          f"estimate {host_est.strip()} bp is the CLI's", flush=True)
+
+
+def accurate_paths(ck, dev, gpu_line, fq, recs):
+    """Phase 9 on the accurate-read corpus ``fq`` at ``-T 10000 -Q 5000``:
+    the CLI with ``--engine auto``, then for ONT and for ``-P pb`` the
+    index, its planes (timed; the index must need several sub-indexes),
+    a timed engine pass whose variant must launch ``n_sub`` x the pass's
+    super-batches, and the host check: under ONT every row, and the
+    estimate of the host counts against the CLI's
+    (:func:`check_all_and_estimate`), under ``-P pb`` 300 sampled rows.
+    The ONT index also gives phase 3 its anchors (into ``recs``).
+    Returns the CLI's launches of the main variant."""
+    from lrge_tpu_torch.platform import Platform
+    from lrge_tpu_torch.strategy import TwoSetStrategy
+
+    tmp = fq.parent
+    cli_out = tmp / "est.txt"
+    launches = run_cli(ck, "accurate", [str(fq), "-T", str(T), "-Q", str(Q)], cli_out, gpu_line)
+    for platform, tag, variant in ((Platform.NANOPORE, "accurate", "main"),
+                                   (Platform.PACBIO, "accurate pacbio", "span")):
+        strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED,
+                               tmpdir=tmp / tag.replace(" ", "_"), platform=platform)
+        targets, queries, avg_target_len = strat.split_fastq()
+        t0 = time.perf_counter()
+        index = strat._build_engine(targets).index
+        t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = device_engine_on_card(index, dev)
+        torch.cuda.synchronize()
+        t_planes = time.perf_counter() - t0
+        n_sub = engine.gdev.n_sub
+        mib = sum(v.nbytes for v in vars(engine.gdev).values() if isinstance(v, torch.Tensor)) / 2**20
+        print(f"[{tag}] index of {len(targets)} targets ({len(index.keys):,} postings) {t_index:.1f} s; "
+              f"n_sub {n_sub}; planes build {t_planes:.2f} s, {mib:.1f} MiB on the card ({gpu_line})", flush=True)
+        if n_sub < 2:
+            fail(f"[{tag}] the accurate-read index must need several sub-indexes, got n_sub {n_sub}")
+        names = [n for n, _ in queries]
+        seqs = [s for _, s in queries]
+        if variant == "main":
+            main_path_case(ck, engine, names, seqs, recs, key="accurate_path")
+        engine.warmup([len(s) for s in seqs])
+        res, _, report = timed_pass(tag, engine, names, seqs)
+        n = read_counts(ck)[variant]
+        sb = super_batch_count(engine, seqs)
+        print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
+        if n != n_sub * sb:
+            fail(f"[{tag}] {n} {variant} launches, not n_sub {n_sub} x {sb} super-batches")
+        print(f"[{tag}] {variant} launches {n} = n_sub {n_sub} x {sb} super-batches", flush=True)
+        if variant == "main":
+            check_all_and_estimate(tag, engine, names, seqs, res, avg_target_len, cli_out)
+        else:
+            check_sample(tag, engine, names, seqs, res, None)
+    return launches["main"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
@@ -602,10 +717,12 @@ def main(argv=None) -> int:
     recs_span = kernel_vs_plain(ck, dev, spans=True)
     phase_done("phase 3, synthetic cases")
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
-        fq, fq_ava = Path(tmp) / "reads.fq", Path(tmp) / "ava" / "reads.fq"
+        fq, fq_ava, fq_acc = (Path(tmp) / d / "reads.fq" for d in ("", "ava", "accurate"))
         fq_ava.parent.mkdir()
+        fq_acc.parent.mkdir()
         write_corpus(fq, READS)
         write_corpus(fq_ava, AVA_READS)
+        write_corpus(fq_acc, READS, mean_len=ACC_MEAN_LEN, err=ACC_ERR)
         phase_done("corpora")
         launches, ext_launches = twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext)
         phase_done("phases 4-6, two-set ONT")
@@ -613,21 +730,25 @@ def main(argv=None) -> int:
         phase_done("phase 7, all-vs-all ONT")
         span_launches = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
         phase_done("phase 8, PacBio")
+        acc_launches = accurate_paths(ck, dev, gpu_line, fq_acc, recs)
+        phase_done("phase 9, accurate reads, multi-sub")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
+
+    def timing(m):
+        return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     def record(name, r, n):
         # times and bound on the path's own anchors; the largest error
         # over every phase-3 case
-        m = r["main_path"]
         return {
             "name": name, "route": "cuda", "source": "lrge_tpu_torch/csrc/chain_dp.cu",
             "replaces": "lrge_tpu/ops/chain_pallas.py:274", "launches": n,
             "max_abs_err": max(c["max_abs_err"] for k, c in r.items() if k != "step_us"),
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
+            **timing(r["main_path"]), "library_ms": None,
         }
 
-    kernels = [record("chain_dp_skip", recs, launches),
+    kernels = [dict(record("chain_dp_skip", recs, launches),
+                    multi_sub_path=dict(launches=acc_launches, **timing(recs["accurate_path"]))),
                dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
                     also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
                dict(record("chain_dp_skip_span", recs_span, span_launches),

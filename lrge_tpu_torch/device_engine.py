@@ -1,12 +1,16 @@
 """Batched device overlap engine with exact host recompute (PyTorch).
 
-Port of the single-device, single-sub path of
-``lrge_tpu/device_engine.py``: queries are partitioned into length
-buckets, padded into super-batches, and each super-batch runs the whole
-pipeline on ``device``: for ONT the fused ``ops.overlap.sketch_map_many``,
-for the PacBio/HPC preset (``pb_mode``) host-sketched hash planes through
-``ops.overlap.pb_map_many`` (wide-key lookup, then the span chain DP
-with the ``min_cnt`` gate).  Rows the device cannot guarantee exactly
+Port of the single-device path of ``lrge_tpu/device_engine.py``: the
+index is split into sub-indexes by target when its expected anchors per
+query exceed the anchor buffer (``n_sub``, the reference's rule);
+queries are partitioned into length buckets, padded into super-batches,
+and each super-batch runs the whole pipeline on ``device``: for ONT on
+one sub-index the fused ``ops.overlap.sketch_map_many``, on several
+``ops.overlap.sketch_lookup_many`` once and a map per sub
+(``ops.overlap.map_subs``); for the PacBio/HPC preset (``pb_mode``)
+host-sketched hash planes through ``ops.overlap.pb_map_many`` (wide-key
+lookup, then per sub the span chain DP with the ``min_cnt`` gate).
+Rows the device cannot guarantee exactly
 (anchor-buffer overflow, a (rid, strand) run longer than the DP window
 or a chain short of ``min_cnt``, minimizer-capacity truncation,
 ambiguous bases under ONT) are recomputed by the exact host engine, so
@@ -14,8 +18,8 @@ counts equal the host engine's; every such row is tallied in
 ``fallback_triggers``.  ``count_batch`` can also collect each row's
 passing target ids (ava, ``--use-min-ref``) and apply the ``-F``
 overhang filter on the device (``supports_device_filter``; never under
-``pb_mode``, where the strategies filter on the host, as the reference
-does).
+``pb_mode`` or on a multi-sub index, where the strategies filter on the
+host, as the reference does).
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from .native import native
 from .ops.encode import make_batches
 from .ops.index import TargetIndex
 from .ops.overlap import (
-    HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host, pb_map_many,
-    sketch_map_many,
+    HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, map_subs, minimizer_cap, pack2bit_host,
+    pb_map_many, sketch_lookup_many, sketch_map_many,
 )
 from .ops.sketch import sketch_seqs_native
 
@@ -133,23 +137,22 @@ class DeviceOverlapEngine:
         self.gdev = None
         if not self.device_ok:
             return
-        # the reference splits large indexes into sub-indexes to bound
-        # per-query anchors; this port runs a single sub-index
+        # bound per-query anchors by splitting a large index into
+        # sub-indexes by target (counts are disjoint per sub and summed);
+        # the minimizer lookup is shared across subs.  Keyed to the base
+        # bucket: larger buckets scale their anchor capacity with length
         n_post = len(index.keys)
         n_uniq = max(1, len(np.unique(index.keys)))
         exp_anchors = (self.length_buckets[0] / 3.0) * (n_post / n_uniq)
         n_sub = max(1, int(np.ceil(exp_anchors / (0.6 * num_anchors))))
-        if n_sub > 1:
-            raise NotImplementedError(
-                f"an index needing {n_sub} sub-indexes: ROADMAP.md item 12"
-            )
         # ~4 buckets per unique key, capped so the offsets stay <= 256 MB
         bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
-        self.gdev = GroupedDeviceIndex.from_host(index, self.device, bucket_bits=bucket_bits)
+        self.gdev = GroupedDeviceIndex.from_host(index, self.device, n_sub=n_sub, bucket_bits=bucket_bits)
         if self.gdev is None:
             # from_host logged why: every posting pruned, or a wide index
             # without a bucketed dictionary; every row goes to the host
             self.device_ok = False
+        logger.debug("device engine: %d sub-indexes (shared lookup)", n_sub)
 
     def query_ranks(self, names) -> tuple[np.ndarray, np.ndarray]:
         """Each query's dual-mask rank (0 without ``no_dual``) and self-id,
@@ -217,13 +220,17 @@ class DeviceOverlapEngine:
             return list(ex.map(one, items))
 
     def supports_device_filter(self) -> bool:
-        """Whether ``-F`` can run on the device: not under ``pb_mode`` (the
-        extent carries are constant-span only); chain starts pack as
-        ``(rpos << 16) | qpos`` in int32, so every target must be shorter
-        than 2^15 and every padded query (plus k) shorter than 2^16."""
+        """Whether ``-F`` can run on the device: only in the fused
+        single-sub ONT pipeline (the extent carries are constant-span
+        only, and the extent reduce runs on the lookup's own ranges);
+        chain starts pack as ``(rpos << 16) | qpos`` in int32, so every
+        target must be shorter than 2^15 and every padded query (plus k)
+        shorter than 2^16."""
         return (
             self.device_ok
             and not self.pb_mode
+            and self.gdev is not None
+            and self.gdev.n_sub == 1
             and int(np.max(self.index.lengths)) < (1 << 15)
             and self.length_buckets[-1] + self.params.k < (1 << 16)
         )
@@ -331,14 +338,18 @@ class DeviceOverlapEngine:
                 )
             lo = L
 
+    def bucket_shape(self, L) -> tuple[int, int]:
+        """``(A, SUP)`` of length bucket ``L``: the anchor capacity scales
+        with the padded length (A = L at the default), the dispatch depth
+        (batches a super-batch) shrinks to keep group work constant."""
+        A = min(1 << 15, max(512, (self.num_anchors * L) // 4096))
+        return A, max(1, (self.super_batch * 4096) // L)
+
     def super_batches(self, L, rows_b, seqs, qdualrank, qselfrid):
         """The super-batches of one length bucket, as host arrays; yields
         ``(nb, A, codes, lengths, ids, dual, selfr)``."""
         B = self.batch_size
-        # anchor capacity scales with the padded length (A = L at the
-        # default), dispatch depth shrinks to keep group work constant
-        A = min(1 << 15, max(512, (self.num_anchors * L) // 4096))
-        SUP = max(1, (self.super_batch * 4096) // L)
+        A, SUP = self.bucket_shape(L)
         batches = make_batches(
             [seqs[i] for i in rows_b], ids=rows_b, batch_size=B, pad_to=L,
             pow2_lengths=False, pad_batch=True,
@@ -382,22 +393,30 @@ class DeviceOverlapEngine:
         """Enqueue the super-batches of one length bucket; yields
         ``(nb, A, codes, lengths, ids, packed_device_plane,
         pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
-        arguments of :func:`sketch_map_many` (under ``pb_mode``, the pair
-        argument of :func:`pb_map_many`)."""
+        arguments of :func:`sketch_map_many`; on a multi-sub index and
+        under ``pb_mode`` (no ``-F``: :meth:`supports_device_filter`)
+        one lookup per super-batch feeds one map per sub
+        (:func:`map_subs`, which merges them into the same planes)."""
         put = lambda a: torch.from_numpy(a).to(self.device)
+        gd, p = self.gdev, self.params
         for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
             if self.pb_mode:
                 planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
                 qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
                 packed, pairs = pb_map_many(
                     qhi, qlo, mps, put(planes[3].reshape(ids.shape)), put(lengths), put(dual), put(selfr),
-                    self.gdev, self.params, num_anchors=A, window=self.window,
-                    want_pairs=mode["want_pairs"],
+                    gd, p, num_anchors=A, window=self.window, want_pairs=mode["want_pairs"],
                 )
-            else:
+            elif gd.n_sub == 1:
                 packed, pairs = sketch_map_many(
                     put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
-                    self.gdev, self.params, num_anchors=A, window=self.window, **mode,
+                    gd, p, num_anchors=A, window=self.window, **mode,
+                )
+            else:
+                found, mps, mcount = sketch_lookup_many(put(pack2bit_host(codes)), put(lengths), gd, p)
+                packed, pairs = map_subs(
+                    found, mps, mcount, put(lengths), put(dual), put(selfr), gd, p, num_anchors=A,
+                    window=self.window, want_pairs=mode["want_pairs"],
                 )
             yield nb, A, codes, lengths, ids, packed, pairs
 

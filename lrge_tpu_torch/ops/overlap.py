@@ -1,4 +1,4 @@
-"""Batched overlap counting on the device (PyTorch): the single-sub ONT and PacBio pipelines.
+"""Batched overlap counting on the device (PyTorch): the ONT and PacBio pipelines, one or more sub-indexes.
 
 Port of the flatten branch of ``lrge_tpu/ops/overlap_jax.py::
 sketch_map_many_core`` (:1895-1933) and what it runs: 2-bit unpack,
@@ -9,18 +9,25 @@ the chain DP (a hand-written CUDA kernel on the card, see
 and score-clip guards.  Optionally the reduce also compacts each row's
 passing targets into a pair plane (ava and ``--use-min-ref``) and
 applies the ``-F`` overhang filter from the chain extents that the
-kernel's extent variant carries.
+kernel's extent variant carries.  That fused pipeline
+(``sketch_map_many``) runs on a single-sub index only.
 
-The PacBio/HPC preset (2k = 38-bit keys, per-minimizer spans) takes the
-reference's split form instead: queries are sketched on the host, their
-hashes arrive as two int32 planes and go through the wide-key bucketed
-lookup (``pb_lookup_many``, overlap_jax.py:196-255, :2233-2295); the map
-reads each minimizer's posting range from ``found``
-(``map_found_many``, :1647-1664), chains with spans through the
-kernel's span variant and gates targets on ``min_cnt``
-(overlap_jax.py:514-552, :624-744, :928-942); ``pb_map_many`` runs
-both.  Every tensor lives on the device of the index planes; integers
-ride in int64 except where a plane or a kernel takes int32.
+Every other pipeline takes the reference's split form: one lookup that
+returns each minimizer's unique-hash slot (``found``), then one map per
+sub-index that reads the sub's posting range from ``found``
+(``map_found_many``, overlap_jax.py:1647-1664); ``map_subs`` runs the
+maps and merges them.  An index whose expected anchors per query
+exceed the anchor buffer is split into ``n_sub`` sub-indexes by target
+(lrge_tpu/device_engine.py:324-353); its ONT lookup is
+``sketch_lookup_many``.  The PacBio/HPC preset (2k = 38-bit keys,
+per-minimizer spans) always takes the split form: queries are sketched
+on the host, their hashes arrive as two int32 planes and go through the
+wide-key bucketed lookup (``pb_lookup_many``, overlap_jax.py:196-255,
+:2233-2295); its map chains with spans through the kernel's span
+variant and gates targets on ``min_cnt`` (overlap_jax.py:514-552,
+:624-744, :928-942); ``pb_map_many`` runs both.  Every tensor lives on
+the device of the index planes; integers ride in int64 except where a
+plane or a kernel takes int32.
 
 The index planes (:class:`GroupedDeviceIndex`) are built from the host
 index with numpy builders copied from the reference, because the
@@ -178,31 +185,40 @@ def _try_build_cuckoo(keys_u32, cbits, max_rounds):
 # ---------------------------------------------------------------------------
 
 _INT_FIELDS = (
-    "mid_occ", "bucket_bits", "bucket_kmax", "packed_rid_bits",
+    "mid_occ", "bucket_bits", "bucket_kmax", "n_sub", "packed_rid_bits",
     "packed_dict_bits", "cuckoo_bits",
 )
+# the per-sub range planes: [n_sub, U] here, a list of n_sub [U] arrays
+# in the reference
+_SUB_FIELDS = ("lo", "hi", "loocc")
 
 
 @dataclass
 class GroupedDeviceIndex:
-    """Single-sub device index (``GroupedDeviceIndex`` of the reference
-    at ``n_sub == 1``), narrow or wide keys.
+    """Device index of ``n_sub`` sub-indexes sharing one dictionary
+    (``GroupedDeviceIndex`` of the reference), narrow or wide keys.
 
-    Postings carry the target's name rank.  ``rps`` packs ``rank <<
-    (1 + pos_bits) | pos << 1 | strand`` when the widths fit
+    Sub ``s`` holds the postings of the targets with ``rid % n_sub ==
+    s``; each unique hash's postings are grouped by sub, in (rid, pos)
+    order inside a group, so each sub's postings of a hash form one
+    range.  Postings carry the target's name rank.  ``rps`` packs
+    ``rank << (1 + pos_bits) | pos << 1 | strand`` when the widths fit
     (``packed_rid_bits`` = pos_bits; never for wide keys), else
-    ``rid``/``pos`` hold the two planes.  ``loocc`` packs each unique
-    hash's posting-range start and width (``packed_dict_bits`` = width
-    bits); otherwise ``lo``/``hi`` hold the range planes.  With
-    ``cuckoo_bits`` > 0, ``uhash``/``uoff``/``loocc`` live in
+    ``rid``/``pos`` hold the two planes.  ``loocc[s]`` packs each
+    unique hash's sub-``s`` range start and width (``packed_dict_bits``
+    = width bits); otherwise ``lo[s]``/``hi[s]`` hold the range planes
+    (all three ``[n_sub, U]``).  ``uoff`` holds the global ranges, for
+    the lookup's occurrence gate.  With ``cuckoo_bits`` > 0 (one sub,
+    narrow keys, packed ranges), ``uhash``/``uoff``/``loocc`` live in
     cuckoo-slot space and ``boff`` is a dummy; otherwise
     ``uhash``/``uoff``/``boff`` form the bucketed dictionary.  Wide
     (PacBio/HPC, 2k = 38-bit) keys split into ``uhash`` = hash >> 19 and
     ``uhash_lo`` = hash & 0x7FFFF and always take the bucketed
-    dictionary.  Packed layouts keep ``[1]`` zero dummies in the planes
-    they replace, as the reference does.  The fused ONT pipeline feeds
-    the map the lookup's own ranges (the ``pre_ranges`` form); the
-    PacBio pipeline reads them from ``found`` (:func:`found_ranges`)."""
+    dictionary.  Packed layouts keep zero dummies (``[1]``, or ``[n_sub,
+    1]`` for the range planes) in the planes they replace, as the
+    reference does.  The fused single-sub ONT pipeline feeds the map the
+    lookup's own ranges (the ``pre_ranges`` form); every other pipeline
+    reads each sub's ranges from ``found`` (:func:`found_ranges`)."""
 
     rid: torch.Tensor
     pos: torch.Tensor
@@ -215,6 +231,7 @@ class GroupedDeviceIndex:
     hi: torch.Tensor
     bucket_bits: int
     bucket_kmax: int
+    n_sub: int
     uhash_lo: torch.Tensor | None
     wide: bool
     packed_rid_bits: int
@@ -225,10 +242,11 @@ class GroupedDeviceIndex:
     cuckoo_bits: int
 
     @classmethod
-    def from_host(cls, index, device: torch.device, bucket_bits: int = 22):
-        """Build the planes from a host ``TargetIndex`` (numpy) and move
-        them to ``device``; ``None`` (logged at INFO) when every posting
-        was pruned or a wide index's bucketed dictionary cannot be built."""
+    def from_host(cls, index, device: torch.device, n_sub: int = 1, bucket_bits: int = 22):
+        """Build the planes of ``n_sub`` sub-indexes from a host
+        ``TargetIndex`` (numpy) and move them to ``device``; ``None``
+        (logged at INFO) when every posting was pruned or a wide index's
+        bucketed dictionary cannot be built."""
         keys, rid, pos, strand = _pruned_postings(index)
         N = len(keys)
         if N == 0:
@@ -242,13 +260,29 @@ class GroupedDeviceIndex:
         else:
             keys32 = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
             ustart = np.flatnonzero(np.concatenate(([True], keys32[1:] != keys32[:-1])))
+        U = len(ustart)
         uoff = np.concatenate([ustart, [N]]).astype(np.int32)
-        # the posting plane carries name ranks (the no-dual gate compares
-        # ranks); one sub-index keeps the (key, rid, pos) order as it is
+        occ = np.diff(uoff)
+        # group each key run's postings by sub (stable: (rid, pos) order
+        # kept inside a group); one sub keeps the order as it is
+        if n_sub > 1:
+            sub = (rid % n_sub).astype(np.int64)
+            run_u = np.repeat(np.arange(U, dtype=np.int64), occ)
+            order = np.lexsort((sub, run_u))
+            rid, pos, strand = rid[order], pos[order], strand[order]
+            # per-(unique, sub) posting counts: the reference's np.add.at
+            # as one bincount
+            counts = np.bincount(run_u * n_sub + sub[order], minlength=U * n_sub).reshape(U, n_sub)
+        else:
+            counts = occ[:, None]
+        # each (unique, sub) range's absolute start, [U, n_sub + 1]
+        soff = np.concatenate(
+            [np.zeros((U, 1), np.int64), np.cumsum(counts, axis=1, dtype=np.int64)], axis=1
+        ) + ustart[:, None]
+        # the posting plane carries name ranks (the no-dual gate compares ranks)
         rank_of = index.name_rank.astype(np.int32)
         rid_g = rank_of[rid]
         pos_g = (pos.astype(np.int32) << 1) | strand.astype(np.int32)
-        occ = np.diff(uoff)
         uh_lo = None
         if wide:
             uh_u = keys[ustart].astype(np.uint64)
@@ -285,18 +319,19 @@ class GroupedDeviceIndex:
         if not no_pack and not wide and rid_bits + pos_bits + 1 <= 31:
             packed_rid_bits = pos_bits
             rps = (rid_g << (1 + pos_bits)) | pos_g
-        occ_bits = max(1, int(occ.max()).bit_length())
+        # the widest (unique, sub) range sets the packed width field
+        occ_bits = max(1, int(counts.max()).bit_length())
         lo_bits = max(1, int(N).bit_length())
         packed_dict_bits = 0
         loocc = None
         if not no_pack and lo_bits + occ_bits <= 31:
             packed_dict_bits = occ_bits
-            loocc = (uoff[:-1] << occ_bits) | occ.astype(np.int32)
-        # 2-probe cuckoo dictionary (narrow keys); a non-convergent walk
-        # keeps the bucketed planes
+            loocc = (soff[:, :-1].T << occ_bits) | counts.T  # [n_sub, U]
+        # 2-probe cuckoo dictionary (one sub, narrow keys); a
+        # non-convergent walk keeps the bucketed planes
         cuckoo_bits = 0
         if (
-            packed_dict_bits and not wide and hash_bits <= 30
+            n_sub == 1 and packed_dict_bits and not wide and hash_bits <= 30
             and os.environ.get("LRGE_NO_CUCKOO") != "1"
         ):
             built = _build_cuckoo(uh_u.astype(np.uint32))
@@ -307,12 +342,13 @@ class GroupedDeviceIndex:
                 ckey_raw[cpos] = uh_u.astype(np.uint32)
                 uh_plane = (ckey_raw ^ np.uint32(0x80000000)).view(np.int32)
                 lc = np.zeros(C, dtype=np.int32)  # empty slots: occ 0
-                lc[cpos] = loocc
-                loocc = lc
+                lc[cpos] = loocc[0]
+                loocc = lc[None]
                 uoff = lc  # the lookup's occurrence-gate plane
                 bucket_bits = 0
                 boff = np.zeros(1, dtype=np.int32)
         dummy = np.zeros(1, dtype=np.int32)
+        sub_dummy = np.zeros((n_sub, 1), dtype=np.int32)
         put = lambda a: None if a is None else torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.int32)
         ).to(device)
@@ -324,10 +360,11 @@ class GroupedDeviceIndex:
             uhash=put(uh_plane),
             uoff=put(uoff),
             boff=put(boff),
-            lo=put(dummy if packed_dict_bits else ustart),
-            hi=put(dummy if packed_dict_bits else uoff[1:]),
+            lo=put(sub_dummy if packed_dict_bits else soff[:, :-1].T),
+            hi=put(sub_dummy if packed_dict_bits else soff[:, 1:].T),
             bucket_bits=bucket_bits,
             bucket_kmax=kmax,
+            n_sub=n_sub,
             uhash_lo=put(uh_lo),
             wide=wide,
             packed_rid_bits=packed_rid_bits,
@@ -342,17 +379,17 @@ class GroupedDeviceIndex:
     def from_jax_planes(cls, planes: dict, device: torch.device):
         """Carry a reference index across: ``planes`` maps the reference
         ``GroupedDeviceIndex`` field names to numpy arrays (0-d for the
-        integer fields; the single sub-index's array for ``lo``, ``hi``
-        and ``loocc``; ``rps``/``loocc``/``uhash_lo`` absent or None when
-        unused)."""
-        if int(planes.get("n_sub", 1)) != 1:
-            raise NotImplementedError("multi-sub indexes: ROADMAP.md item 12")
+        integer fields; for ``lo``, ``hi`` and ``loocc`` the reference's
+        list of ``n_sub`` per-sub arrays, or their ``[n_sub, U]`` stack;
+        ``rps``/``loocc``/``uhash_lo`` absent or None when unused)."""
         kw = {name: int(planes[name]) for name in _INT_FIELDS}
         kw["wide"] = bool(planes.get("wide", False))
         for name in (
             "rid", "pos", "rank", "uhash", "uoff", "boff", "lo", "hi", "uhash_lo", "rps", "loocc", "tlen",
         ):
             a = planes.get(name)
+            if a is not None and name in _SUB_FIELDS:
+                a = np.stack([np.asarray(x) for x in a]).reshape(kw["n_sub"], -1)
             kw[name] = None if a is None else torch.tensor(
                 np.asarray(a), dtype=torch.int32, device=device
             )
@@ -534,18 +571,19 @@ def pb_lookup_many(qhi, qlo, gi: GroupedDeviceIndex, *, hash_bits, q_occ_frac):
     ).reshape(NB, B, M)
 
 
-def found_ranges(found, gi: GroupedDeviceIndex):
-    """Each minimizer's posting range ``(lo, occ)`` from its unique-hash
-    slot (``found``, -1 = none: occ 0), through ``loocc`` or ``lo``/``hi``
-    (``map_found_core``'s own gather, overlap_jax.py:1652-1664)."""
+def found_ranges(found, gi: GroupedDeviceIndex, sub: int = 0):
+    """Each minimizer's posting range ``(lo, occ)`` in sub-index ``sub``
+    from its unique-hash slot (``found``, -1 = none: occ 0), through
+    ``loocc[sub]`` or ``lo[sub]``/``hi[sub]`` (``map_found_core``'s own
+    gather, overlap_jax.py:1647-1664)."""
     fc = found.clamp(min=0)
     if gi.packed_dict_bits:
-        lo_occ = _gather1(gi.loocc, fc)
+        lo_occ = _gather1(gi.loocc[sub], fc)
         lo = lo_occ >> gi.packed_dict_bits
         occ = torch.where(found >= 0, lo_occ & ((1 << gi.packed_dict_bits) - 1), 0)
     else:
-        lo = _gather1(gi.lo, fc)
-        occ = torch.where(found >= 0, _gather1(gi.hi, fc) - lo, 0)
+        lo = _gather1(gi.lo[sub], fc)
+        occ = torch.where(found >= 0, _gather1(gi.hi[sub], fc) - lo, 0)
     return lo, occ
 
 
@@ -835,20 +873,34 @@ def map_found_core(
 
 def _sketch_lookup_rows(codes_p, lengths, gi: GroupedDeviceIndex, p):
     """Unpack, sketch and lookup over a super-batch flattened to one row
-    axis: ``(qlen, mps, mcount, lo, occ)``."""
+    axis: ``(qlen, found, mps, mcount, lo, occ)``."""
     NB, B, Lq = codes_p.shape
     codes = _unpack2bit(codes_p, Lq * 4).reshape(NB * B, Lq * 4)
     qlen = lengths.reshape(NB * B).long()
-    _, mps, mcount, lo, occ = sketch_lookup_core(codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac)
-    return qlen, mps, mcount, lo, occ
+    return (qlen, *sketch_lookup_core(codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac))
+
+
+def sketch_lookup_many(codes_p, lengths, gi: GroupedDeviceIndex, params):
+    """The ONT lookup alone over a super-batch of 2-bit packed codes
+    (``[NB, B, L//4]`` uint8), in one pass over the flattened rows (the
+    flatten branch of ``sketch_lookup_many_core``, overlap_jax.py:
+    1544-1571): ``(found, mps, mcount)``, ``[NB, B, M]``, ``[NB, B, M]``
+    and ``[NB, B]``.  Every sub-index maps from this one lookup."""
+    NB, B, _ = codes_p.shape
+    _, found, mps, mcount, _, _ = _sketch_lookup_rows(codes_p, lengths, gi, params)
+    return found.reshape(NB, B, -1), mps.reshape(NB, B, -1), mcount.reshape(NB, B)
 
 
 def sketch_anchors(codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
-    """The chain DP's inputs over a super-batch, as the main path builds
-    them (:func:`sketch_map_many` up to the chain DP): ``(key2_s,
-    rpos_s, qpos_s, valid_s)``, each ``[NB * B, num_anchors]``."""
+    """The chain DP's inputs over a super-batch, as the ONT path builds
+    them (:func:`sketch_map_many`; on a multi-sub index
+    :func:`sketch_lookup_many` and the first sub's :func:`map_found_many`,
+    up to the chain DP): ``(key2_s, rpos_s, qpos_s, valid_s)``, each
+    ``[NB * B, num_anchors]``."""
     p = params
-    qlen, mps, _, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    qlen, found, mps, _, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    if gi.n_sub > 1:
+        lo, occ = found_ranges(found, gi)
     return expand_sort(
         lo, occ, mps, qlen, qdualrank.reshape(-1).long(), qselfrid.reshape(-1).long(), gi, k=p.k,
         num_anchors=num_anchors, no_dual=p.no_dual, no_diag=p.no_diag,
@@ -859,16 +911,19 @@ def sketch_map_many(
     codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window,
     want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal",
 ):
-    """Whole ONT pipeline over a super-batch flattened to one row axis.
+    """Whole ONT pipeline over a super-batch flattened to one row axis,
+    on a single-sub index (the map takes the lookup's own ranges).
 
     ``codes_p`` is 2-bit packed (``[NB, B, L//4]`` uint8).  Returns the
     ``[NB, B, 4]`` int32 plane (counts, n_anchors, max_run, mcount) and
     the ``[NB, B, min(A, PAIR_CAP)]`` int32 plane of passing target
     ranks with ``want_pairs`` (else ``None``).  ``want_extents`` applies
     the ``-F`` filter (:func:`map_found_core`)."""
+    if gi.n_sub != 1:
+        raise ValueError("the fused pipeline maps one sub-index: use sketch_lookup_many and map_subs")
     NB, B, _ = codes_p.shape
     p = params
-    qlen, mps, mcount, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    qlen, _, mps, mcount, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
     counts, n_anchors, max_run, pairs = map_found_core(
         lo, occ, mps, qlen, qdualrank.reshape(-1).long(), qselfrid.reshape(-1).long(), gi,
         p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw, min_score=p.min_chain_score,
@@ -883,36 +938,69 @@ def sketch_map_many(
 
 
 # ---------------------------------------------------------------------------
-# PacBio/HPC: host-sketched planes, wide-key lookup, map from ``found``
+# split form: one shared lookup, then a map from ``found`` per sub-index
 # ---------------------------------------------------------------------------
 
 
 def map_found_many(
     found, mps, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors, window,
-    want_pairs=False,
+    want_pairs=False, with_spans=False, sub=0,
 ):
-    """:func:`map_found_core` with spans over a super-batch ``[NB, B, M]``
-    of PacBio/HPC lookup results, flattened to one row axis, with the
-    ranges read from ``found``.  Returns ``(counts, n_anchors, max_run,
-    pairs)``, each ``[NB, B]`` (pairs ``[NB, B, min(A, PAIR_CAP)]``, or
-    ``None``)."""
+    """:func:`map_found_core` of sub-index ``sub`` over a super-batch
+    ``[NB, B, M]`` of lookup results (:func:`sketch_lookup_many`, or
+    :func:`pb_lookup_many` with ``with_spans``: spans in ``mps``, the
+    ``min_cnt`` gate), flattened to one row axis, with the ranges read
+    from ``found``.  Returns ``(counts, n_anchors, max_run, pairs)``,
+    each ``[NB, B]`` (pairs ``[NB, B, min(A, PAIR_CAP)]``, or ``None``)."""
     NB, B, M = found.shape
     p = params
-    lo, occ = found_ranges(found.reshape(NB * B, M), gi)
+    lo, occ = found_ranges(found.reshape(NB * B, M), gi, sub)
     out = map_found_core(
         lo, occ, mps.reshape(NB * B, M).long(), qlen.reshape(-1).long(), qdualrank.reshape(-1).long(),
         qselfrid.reshape(-1).long(), gi, p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw,
         min_score=p.min_chain_score, num_anchors=num_anchors, window=window, no_dual=p.no_dual,
         no_diag=p.no_diag, max_chain_skip=p.max_chain_skip, want_pairs=want_pairs,
-        with_spans=True, min_cnt=p.min_cnt,
+        with_spans=with_spans, min_cnt=p.min_cnt,
     )
     return tuple(None if x is None else x.reshape(NB, B, *x.shape[1:]) for x in out)
 
 
+def map_subs(
+    found, mps, mcount, qlen, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors,
+    window, want_pairs=False, with_spans=False,
+):
+    """:func:`map_found_many` once per sub-index, merged as the
+    reference's collect merges them (device_engine.py:1143-1156): counts
+    summed (a target lives in one sub), ``n_anchors`` and ``max_run``
+    maxed, ``mcount`` ``[NB, B]`` the lookup's, the per-sub pair planes
+    concatenated along the last axis.  Returns the ``[NB, B, 4]`` int32
+    plane (counts, n_anchors, max_run, mcount) and the ``[NB, B, n_sub *
+    min(A, PAIR_CAP)]`` int32 pair plane with ``want_pairs`` (else
+    ``None``), as :func:`sketch_map_many` does."""
+    outs = [
+        map_found_many(
+            found, mps, qlen, qdualrank, qselfrid, gi, params, num_anchors=num_anchors, window=window,
+            want_pairs=want_pairs, with_spans=with_spans, sub=s,
+        )
+        for s in range(gi.n_sub)
+    ]
+    counts, n_anchors, max_run = (torch.stack([o[j] for o in outs]) for j in range(3))
+    plane = torch.stack(
+        [counts.sum(0), n_anchors.amax(0), max_run.amax(0), mcount.long()], dim=-1
+    ).to(torch.int32)
+    pairs = torch.cat([o[3] for o in outs], dim=-1).to(torch.int32) if want_pairs else None
+    return plane, pairs
+
+
+# ---------------------------------------------------------------------------
+# PacBio/HPC: host-sketched planes and the wide-key lookup
+# ---------------------------------------------------------------------------
+
+
 def pb_anchors(qhi, qlo, mps, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
     """The span chain DP's inputs over a PacBio super-batch, as
-    :func:`pb_map_many` builds them: ``(key2_s, rpos_s, qpos_s,
-    valid_s)``, each ``[NB * B, num_anchors]``."""
+    :func:`pb_map_many` builds them for its first sub-index: ``(key2_s,
+    rpos_s, qpos_s, valid_s)``, each ``[NB * B, num_anchors]``."""
     NB, B, M = qhi.shape
     p = params
     found = pb_lookup_many(qhi, qlo, gi, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac)
@@ -932,16 +1020,13 @@ def pb_map_many(
     planes (``[NB, B, M]`` int32: ``qhi``/``qlo`` the 38-bit hash split
     at bit 19, -1 padding; ``mps`` = ``pos << 9 | span << 1 | strand``;
     ``mcount`` ``[NB, B]`` the true minimizer counts): the wide-key
-    lookup (:func:`pb_lookup_many`), then :func:`map_found_many` with
-    spans.  Returns the ``[NB, B, 4]`` int32 plane (counts, n_anchors,
-    max_run, mcount) and, with ``want_pairs``, the pair plane (else
-    ``None``), as :func:`sketch_map_many` does."""
-    NB, B, _ = qhi.shape
+    lookup (:func:`pb_lookup_many`), then :func:`map_subs` with spans,
+    one map per sub-index.  Returns the ``[NB, B, 4]`` int32 plane
+    (counts, n_anchors, max_run, mcount) and, with ``want_pairs``, the
+    pair plane (else ``None``), as :func:`map_subs` does."""
     p = params
     found = pb_lookup_many(qhi, qlo, gi, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac)
-    counts, n_anchors, max_run, pairs = map_found_many(
-        found, mps, lengths, qdualrank, qselfrid, gi, p, num_anchors=num_anchors, window=window,
-        want_pairs=want_pairs,
+    return map_subs(
+        found, mps, mcount, lengths, qdualrank, qselfrid, gi, p, num_anchors=num_anchors, window=window,
+        want_pairs=want_pairs, with_spans=True,
     )
-    plane = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1).to(torch.int32)
-    return plane, None if pairs is None else pairs.to(torch.int32)

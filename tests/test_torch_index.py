@@ -46,12 +46,13 @@ def bucket_bits_for(index):
 
 
 def jax_planes(g) -> dict:
-    """The reference index's fields as numpy (single sub-index)."""
+    """The reference index's fields as numpy (the per-sub lists of
+    ``lo``, ``hi`` and ``loocc`` stacked to ``[n_sub, U]``)."""
     out = {}
     for f in dataclasses.fields(g):
         v = getattr(g, f.name)
         if isinstance(v, list):
-            (v,) = v
+            v = np.stack([np.asarray(x) for x in v])
         out[f.name] = None if v is None else np.asarray(v)
     return out
 

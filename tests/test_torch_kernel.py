@@ -5,8 +5,9 @@ variant's plain version at a constant span (it must be the main one's,
 with the extent variant's ``cnt``), and the build report's parse of
 every kernel instance.  On a CUDA card (marker ``gpu``; skipped without
 one): each variant equals its plain version bit for bit at every
-window, and the device engine's counts equal the exact host engine's
-(ONT and PacBio).  On the card:
+window and on rows of the largest bucket's length, and the device
+engine's counts equal the exact host engine's (ONT and PacBio, one
+sub-index and several).  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernel.py
 """
@@ -237,6 +238,22 @@ def test_cuda_kernel_edge_runs_match_plain(window):
 
 
 @pytest.mark.gpu
+def test_cuda_kernel_full_length_rows_match_plain():
+    # rows as long as the largest length bucket gives (A = 2^15): one run
+    # of length A, then one-anchor runs; the main and the span variant
+    need_cuda()
+    args = edge_run_rows(np.random.default_rng(15), 3, 1 << 15)
+    spanned = with_spans(args, np.random.default_rng(16))
+    for mode, rows in ((dict(), args), (dict(spans=True), spanned)):
+        got = chain_dp_skip(*[a.cuda() for a in rows], AVA_ONT.chn_pen_gap(), window=32, **mode, **KW)
+        torch.cuda.synchronize()
+        want = chain_dp_skip(*rows, AVA_ONT.chn_pen_gap(), window=32, **mode, **KW)
+        for name, g, w in zip(("f", "broke", "cnt"), got, want):
+            assert torch.equal(g.cpu(), w), (name, mode)
+        assert (want[0][0, -100:] > want[0][0, :100].max()).all(), "the long run's chain climbs to its end"
+
+
+@pytest.mark.gpu
 def test_engine_on_card_matches_host():
     need_cuda()
     rng = np.random.default_rng(31337)
@@ -272,3 +289,40 @@ def test_engine_on_card_matches_host():
     host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
     np.testing.assert_array_equal(res.counts, [c for c, _ in host])
     np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
+
+
+@pytest.mark.gpu
+def test_multisub_engine_on_card_matches_host():
+    # a small anchor buffer splits the index into sub-indexes: one lookup
+    # and one chain DP launch per sub a super-batch, counts equal the host's
+    need_cuda()
+    rng = np.random.default_rng(4242)
+    genome = rng.choice(list(b"ACGT"), size=100_000).astype(np.uint8).tobytes()
+
+    def reads(n, length):
+        out = []
+        for _ in range(n):
+            pos = int(rng.integers(0, len(genome) - length))
+            s = np.frombuffer(genome[pos : pos + length], np.uint8).copy()
+            hit = rng.random(length) < 0.02
+            s[hit] = rng.choice(list(b"ACGT"), size=int(hit.sum()))
+            out.append(s.tobytes())
+        return out
+
+    targets, queries = reads(80, 2000), reads(40, 2500)
+    tnames = [b"t%d" % i for i in range(80)]
+    qnames = [b"q%d" % i for i in range(40)]
+    for platform, counter in ((Platform.NANOPORE, "launches"), (Platform.PACBIO, "span_launches")):
+        index = build_index(targets, tnames, preset_for(platform, dual=True))
+        dev = DeviceOverlapEngine(
+            index, device=torch.device("cuda"), batch_size=16, num_anchors=1536, length_buckets=(4096,)
+        )
+        assert dev.gdev.n_sub >= 2
+        before = getattr(chain_dp_skip, counter)
+        res = dev.count_batch(qnames, queries)
+        # 40 rows: 3 batches of 16, one super-batch
+        assert getattr(chain_dp_skip, counter) == before + dev.gdev.n_sub
+        host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
+        np.testing.assert_array_equal(res.counts, [c for c, _ in host])
+        np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
+        assert res.fallback_rows < len(queries) // 2

@@ -271,7 +271,7 @@ def test_map_found_with_spans_matches_jax(corpora, monkeypatch, case):
     t = torch.from_numpy
     got = port.map_found_many(
         t(x.found), t(x.mps), t(x.lengths), t(x.dual), t(x.selfr), x.gi, params, num_anchors=A, window=W,
-        want_pairs=want_pairs,
+        want_pairs=want_pairs, with_spans=True,
     )
     for g, w_, what in zip(got[:3], want[:3], ("counts", "n_anchors", "max_run")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=what)

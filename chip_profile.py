@@ -46,7 +46,7 @@ def sub_costs(engine, names, seqs) -> None:
     super-batch of the fullest bucket: ms of a synchronised call, mean of
     3 after one warm-up."""
     from lrge_tpu_torch.ops.overlap import (
-        map_found_many, minimizer_cap, pack2bit_host, pb_lookup_many, sketch_lookup_many,
+        map_found_many, minimizer_cap, pb_lookup_many, sketch_lookup_many,
     )
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
@@ -60,8 +60,8 @@ def sub_costs(engine, names, seqs) -> None:
         qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
         lookup = lambda: (pb_lookup_many(qhi, qlo, gd, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac), mps)
     else:
-        codes_p, lengths_d = put(pack2bit_host(codes)), put(lengths)
-        lookup = lambda: sketch_lookup_many(codes_p, lengths_d, gd, p)[:2]
+        codes_d, lengths_d = put(codes), put(lengths)
+        lookup = lambda: sketch_lookup_many(codes_d, lengths_d, gd, p)[:2]
 
     def ms(fn):
         fn()

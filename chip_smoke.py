@@ -57,15 +57,31 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    through the CLI maps every query with ``map_read`` on threads, which
    takes minutes on these reads); the PacBio pass holds 300 rows to the
    host.  No ``-F`` pass: on a multi-sub index ``-F`` runs on the host,
-   as in the reference.
+   as in the reference;
+10. the sharded engine and a multi-process run, on the one card: (a) an
+   engine whose index is sharded in two by target, both shards on the
+   card (``device=[cuda:0, cuda:0]``), over phase 4's index, phase 8's
+   PacBio index and an all-vs-all index of the first 5,000 reads of
+   phase 7's subsample: every row's counts, had-mapping flags and pair
+   sets must equal the single-device engine's, 300 rows the host's, and
+   the variant must launch once a shard and super-batch; (b) the CLI at
+   phase 4's run shape in two processes joined over gloo (two ranks on
+   one card: NCCL refuses a duplicate GPU), each holding one shard, the
+   forward two-set path counting in lockstep: rank 0's estimate must be
+   phase 4's, rank 1 must write nothing.  No NCCL collective runs: the
+   machine has one card.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
 too (counts reset just before it, read just after).  Each phase prints
 its wall time.  The line before the last is the kernels' JSON record
 (the main variant's also carries phase 9's case and CLI launches under
-``multi_sub_path``); the last line is ``{"ok": true, "device":
-{...}}``.  Without CUDA it exits 1 and prints no result.
+``multi_sub_path``, and it and the span variant phase 10's engine
+launches under ``sharded_path``); the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA it exits 1 and prints no result.
+
+``python3 chip_smoke.py --rank-cli ARGS`` is one rank of phase 10's
+multi-process run (the env contract names the rank).
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ import argparse
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -90,6 +107,9 @@ AVA_READS, AVA_N = 26_000, 25_000  # all-vs-all corpus and -n
 PB_AVA_READS = 5_000  # phase 8's all-vs-all rows (the first of phase 7's subsample)
 AVA_FILTER_READS = 5_000  # phase 7's all-vs-all -F rows (the first of its subsample)
 ACC_MEAN_LEN, ACC_ERR = 10_000, 0.01  # phase 9's reads: mean 10 kb, 1% substitutions
+SHARDS = 2  # phase 10's shards, all on the one card
+SHARD_AVA_READS = 5_000  # phase 10's all-vs-all rows (the first of phase 7's subsample)
+RANK_TIMEOUT = 600  # seconds a rank of phase 10's two-process run may take
 SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # the synthetic cases' gap penalty (the main path's is the preset's)
@@ -254,7 +274,7 @@ def main_path_case(ck, engine, names, seqs, recs, key="main_path", **mode):
     device sketch; PacBio: the host planes), through the variant that
     ``mode`` names; adds ``key`` to ``recs`` and prints the
     critical-path floor (longest run x the step latency)."""
-    from lrge_tpu_torch.ops.overlap import minimizer_cap, pack2bit_host, pb_anchors, sketch_anchors
+    from lrge_tpu_torch.ops.overlap import minimizer_cap, pb_anchors, sketch_anchors
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
     L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
@@ -270,8 +290,7 @@ def main_path_case(ck, engine, names, seqs, recs, key="main_path", **mode):
         name = "pacbio "
     else:
         key2, rpos, qpos, valid = sketch_anchors(
-            put(pack2bit_host(codes)), put(lengths), put(dual_b), put(selfr_b), engine.gdev,
-            engine.params, num_anchors=A,
+            put(codes), put(lengths), put(dual_b), put(selfr_b), engine.gdev, engine.params, num_anchors=A,
         )
         name = ""
     subs = f", sub 0 of {engine.gdev.n_sub}" if engine.gdev.n_sub > 1 else ""
@@ -461,7 +480,8 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     """Phases 4-6 on the 15,000-read corpus ``fq`` at ``-T 10000 -Q
     5000``, with phase 3's main-path case of both constant-span variants
     (into ``recs`` and ``recs_ext``) once the index is built; returns the
-    CLI launch counts of the main path and of the ``-F`` path."""
+    CLI launch counts of the main path and of the ``-F`` path, and phase
+    4's engine pass (index, queries, result) for phase 10."""
     from lrge_tpu_torch import device_engine
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
@@ -481,6 +501,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     res, _, report = timed_pass("main", engine, names, seqs)
     check_sample("main", engine, names, seqs, res, None)
     print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
+    single = dict(index=engine.index, names=names, seqs=seqs, res=res)
 
     # phase 5: -F on the same run shape
     ext_launches = run_cli(
@@ -508,7 +529,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     res, pairs, report = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
     check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
     print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
-    return launches["main"], ext_launches["ext"]
+    return launches["main"], ext_launches["ext"], single
 
 
 def ava_path(ck, dev, gpu_line, fq):
@@ -547,7 +568,8 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     main-path case of the span variant (into ``recs_span``), then the
     PacBio engine alone: a timed pass, a ``--use-min-ref`` pair-list
     pass, and an all-vs-all pair-list pass over ``ava_reads``; returns
-    the CLI's span-variant launches."""
+    the CLI's span-variant launches and the two-set engine pass (index,
+    queries, result) for phase 10."""
     from lrge_tpu_torch.platform import Platform, preset_for
     from lrge_tpu_torch.strategy import TwoSetStrategy
     from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
@@ -570,6 +592,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     res, _, report = timed_pass("pacbio", engine, names, seqs)
     check_sample("pacbio", engine, names, seqs, res, None)
     print(f"[pacbio] engine: {report} ({gpu_line})", flush=True)
+    single = dict(index=engine.index, names=names, seqs=seqs, res=res)
 
     # --use-min-ref: index the queries, stream the targets with pair lists
     inv = device_engine_on_card(strat._build_engine(queries).index, dev)
@@ -590,7 +613,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     res, pairs, report = timed_pass("pacbio ava", ava, names, seqs, pairs=True)
     check_sample("pacbio ava", ava, names, seqs, res, pairs)
     print(f"[pacbio ava] engine: {report} ({gpu_line})", flush=True)
-    return launches["span"]
+    return launches["span"], single
 
 
 def super_batch_count(engine, seqs) -> int:
@@ -683,6 +706,163 @@ def accurate_paths(ck, dev, gpu_line, fq, recs):
     return launches["main"]
 
 
+def sharded_engine_on_card(tag, index, dev, gpu_line):
+    """The port's device engine over ``index`` sharded in ``SHARDS`` by
+    target, every shard on the card ``dev``; prints its planes' build time
+    and size a shard."""
+    from lrge_tpu_torch.device_engine import DeviceOverlapEngine
+
+    t0 = time.perf_counter()
+    engine = DeviceOverlapEngine(index, device=[dev] * SHARDS)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    if engine.sharded is None or len(engine.shards) != SHARDS:
+        fail(f"[{tag}] the engine did not shard its index in {SHARDS}")
+    mib = []
+    for gi in engine.shards:
+        planes = [v for v in vars(gi).values() if isinstance(v, torch.Tensor)]
+        if any(p.device.type != "cuda" for p in planes):
+            fail(f"[{tag}] shard planes are not on the card")
+        mib.append(sum(p.nbytes for p in planes) / 2**20)
+    print(f"[{tag}] {SHARDS} shards on {dev}: planes build {t:.2f} s, "
+          f"{', '.join(f'{m:.1f}' for m in mib)} MiB a shard ({gpu_line})", flush=True)
+    return engine
+
+
+def check_rows_equal(tag, res, want, pairs=None, want_pairs=None):
+    """Every row of a sharded pass against the single-device pass: counts,
+    had-mapping flags and, with ``pairs``, pair sets (as rid sets: the two
+    lay their pair planes out differently)."""
+    bad = np.flatnonzero((res.counts != want.counts) | (res.had_mapping != want.had_mapping))
+    if len(bad):
+        fail(f"[{tag}] {len(bad)} rows differ from the single-device engine, first {bad[0]}")
+    if pairs is not None:
+        if pairs.keys() != want_pairs.keys():
+            fail(f"[{tag}] the rows with pair lists differ from the single-device engine's")
+        for i, rids in pairs.items():
+            if set(rids.tolist()) != set(want_pairs[i].tolist()):
+                fail(f"[{tag}] row {i}: pair set != the single-device engine's")
+    print(f"[{tag}] all {len(res.counts)} rows equal the single-device engine's"
+          f"{' (pair sets too)' if pairs is not None else ''}", flush=True)
+
+
+def sharded_pass(ck, tag, engine, names, seqs, gpu_line, want, pairs=False, want_pairs=None):
+    """One warm pass of a sharded engine: timed, its variant launched once a
+    shard and super-batch, every row held to the single-device pass
+    ``want``, 300 rows to the host.  Returns the launches."""
+    variant = "span" if engine.pb_mode else "main"
+    engine.warmup([len(s) for s in seqs], want_pairs=pairs)
+    res, collected, report = timed_pass(tag, engine, names, seqs, pairs=pairs)
+    n, sb = read_counts(ck)[variant], super_batch_count(engine, seqs)
+    print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
+    if n != SHARDS * sb:
+        fail(f"[{tag}] {n} {variant} launches, not {SHARDS} shards x {sb} super-batches")
+    print(f"[{tag}] {variant} launches {n} = {SHARDS} shards x {sb} super-batches", flush=True)
+    check_rows_equal(tag, res, want, collected, want_pairs)
+    check_sample(tag, engine, names, seqs, res, collected)
+    return n
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_cli(args) -> int:
+    """One rank of phase 10's two-process run: join the process group that
+    the env contract describes over gloo (two ranks on one card), run the
+    CLI, print this rank's kernel launches on standard error, leave the
+    group."""
+    from lrge_tpu_torch import cli
+    from lrge_tpu_torch.ops import chain_kernel as ck
+    from lrge_tpu_torch.parallel.distributed import init_from_env
+
+    init_from_env(backend="gloo")
+    try:
+        return cli.main(args)
+    finally:
+        print("rank launches " + json.dumps(read_counts(ck)), file=sys.stderr, flush=True)
+        torch.distributed.destroy_process_group()
+
+
+def two_process_cli(fq, want_out, gpu_line):
+    """Phase 10 (b): the CLI at phase 4's run shape in two processes on the
+    card, joined over gloo; the forward two-set path must count in
+    lockstep on a two-shard index, rank 0 must print phase 4's estimate
+    (``want_out``) and rank 1 nothing."""
+    tmp = fq.parent
+    port = free_port()
+    args = [str(fq), "-T", str(T), "-Q", str(Q), "-s", str(SEED), "-v"]
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for pid in range(2):
+        out = tmp / f"est_rank{pid}.txt"
+        outs.append(out)
+        env = dict(os.environ, LRGE_COORDINATOR=f"localhost:{port}", LRGE_NUM_PROCESSES="2",
+                   LRGE_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-cli", *args, "-o", str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    logs = []
+    try:
+        for pid, p in enumerate(procs):
+            stdout, err = p.communicate(timeout=RANK_TIMEOUT)
+            logs.append(err)
+            if p.returncode != 0:
+                fail(f"[ranks] rank {pid} exited {p.returncode}: {err[-2000:]}")
+            if stdout.strip():
+                fail(f"[ranks] rank {pid} printed to standard output: {stdout[-200:]}")
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for pid, log in enumerate(logs):
+        needles = ("sharded over 2 devices (2x1)", "lockstep count: process", "Using device overlap engine on cuda")
+        for needle in needles:
+            if needle not in log:
+                fail(f"[ranks] rank {pid} did not log {needle!r}")
+        lines = [ln for ln in log.splitlines() if "lockstep count" in ln or ln.startswith("rank launches")]
+        print(f"[ranks] rank {pid}: " + "; ".join(ln.split("] ")[-1] for ln in lines), flush=True)
+    if not outs[0].exists() or outs[0].read_text() != want_out.read_text():
+        fail(f"[ranks] rank 0's estimate != phase 4's ({want_out.read_text().strip()})")
+    if outs[1].exists():
+        fail("[ranks] rank 1 wrote an estimate")
+    print(f"[ranks] two processes over gloo on one card: rank 0's estimate {outs[0].read_text().strip()} bp "
+          f"is phase 4's, rank 1 wrote nothing; wall {wall:.1f} s ({gpu_line})", flush=True)
+
+
+def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
+    """Phase 10: (a) the sharded engine on the card over phase 4's index
+    (``ont``), phase 8's PacBio index (``pb``) and an all-vs-all index of
+    ``ava_reads``, each pass held row for row to the single-device engine;
+    (b) the two-process CLI (:func:`two_process_cli`).  Returns the
+    sharded engine passes' launches by variant."""
+    from lrge_tpu_torch.platform import Platform, preset_for
+    from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
+
+    launches = {"main": 0, "span": 0}
+    for tag, single in (("sharded", ont), ("sharded pacbio", pb)):
+        engine = sharded_engine_on_card(tag, single["index"], dev, gpu_line)
+        launches["span" if engine.pb_mode else "main"] += sharded_pass(
+            ck, tag, engine, single["names"], single["seqs"], gpu_line, single["res"]
+        )
+        del engine
+    names = [n for n, _ in ava_reads]
+    seqs = [s for _, s in ava_reads]
+    index = build_engine_no_fork(ava_reads, preset_for(Platform.NANOPORE, dual=False)).index
+    one = device_engine_on_card(index, dev)
+    one.warmup([len(s) for s in seqs], want_pairs=True)
+    want, want_pairs, report = timed_pass("sharded ava, one device", one, names, seqs, pairs=True)
+    print(f"[sharded ava] single-device engine, first {len(seqs)} reads: {report} ({gpu_line})", flush=True)
+    engine = sharded_engine_on_card("sharded ava", index, dev, gpu_line)
+    launches["main"] += sharded_pass(ck, "sharded ava", engine, names, seqs, gpu_line, want, True, want_pairs)
+    del engine, one
+    two_process_cli(fq, fq.parent / "est.txt", gpu_line)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
@@ -724,14 +904,16 @@ def main(argv=None) -> int:
         write_corpus(fq_ava, AVA_READS)
         write_corpus(fq_acc, READS, mean_len=ACC_MEAN_LEN, err=ACC_ERR)
         phase_done("corpora")
-        launches, ext_launches = twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext)
+        launches, ext_launches, ont_single = twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext)
         phase_done("phases 4-6, two-set ONT")
         ava_reads = ava_path(ck, dev, gpu_line, fq_ava)
         phase_done("phase 7, all-vs-all ONT")
-        span_launches = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
+        span_launches, pb_single = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
         phase_done("phase 8, PacBio")
         acc_launches = accurate_paths(ck, dev, gpu_line, fq_acc, recs)
         phase_done("phase 9, accurate reads, multi-sub")
+        sharded_launches = sharded_paths(ck, dev, gpu_line, fq, ont_single, pb_single, ava_reads[:SHARD_AVA_READS])
+        phase_done("phase 10, sharded engine and two processes")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     def timing(m):
@@ -748,11 +930,13 @@ def main(argv=None) -> int:
         }
 
     kernels = [dict(record("chain_dp_skip", recs, launches),
-                    multi_sub_path=dict(launches=acc_launches, **timing(recs["accurate_path"]))),
+                    multi_sub_path=dict(launches=acc_launches, **timing(recs["accurate_path"])),
+                    sharded_path=dict(launches=sharded_launches["main"], shards=SHARDS)),
                dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
                     also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
                dict(record("chain_dp_skip_span", recs_span, span_launches),
-                    also_replaces="lrge_tpu/ops/overlap_jax.py:624-788 (with_spans)")]
+                    also_replaces="lrge_tpu/ops/overlap_jax.py:624-788 (with_spans)",
+                    sharded_path=dict(launches=sharded_launches["span"], shards=SHARDS))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -761,4 +945,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_cli(sys.argv[2:]) if sys.argv[1:2] == ["--rank-cli"] else main())

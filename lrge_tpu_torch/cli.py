@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 import sys
 from pathlib import Path
 
@@ -20,6 +19,7 @@ import torch
 from . import __version__
 from .errors import LrgeError
 from .estimate import LOWER_QUANTILE, UPPER_QUANTILE
+from .parallel.distributed import init_from_env
 from .strategy import DEFAULT_QUERY_NUM_READS, DEFAULT_TARGET_NUM_READS, AvaBuilder, TwoSetBuilder
 from .utils import create_temp_dir, format_estimate
 
@@ -137,9 +137,12 @@ def setup_logging(quiet: int, verbose: int) -> None:
     )
 
 
-def main(argv=None, device: torch.device | None = None) -> int:
-    """Run the CLI; ``device`` pins the device engine's ``torch.device``
-    (default: the one CUDA card)."""
+def main(argv=None, device=None) -> int:
+    """Run the CLI; ``device`` pins the device engine's ``torch.device``,
+    or a list of devices to shard over (default: every visible CUDA
+    card).  Under a multi-process launch (``LRGE_COORDINATOR``,
+    ``LRGE_NUM_PROCESSES``, ``LRGE_PROCESS_ID``) every process runs the
+    same deterministic pipeline and only rank 0 writes the result."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.quiet and args.verbose:
@@ -148,9 +151,8 @@ def main(argv=None, device: torch.device | None = None) -> int:
         args.target_num_reads is not None or args.query_num_reads is not None
     ):
         ap.error("the argument '--num <INT>' cannot be used with '--target/--query'")
-    if os.environ.get("LRGE_COORDINATOR"):
-        raise NotImplementedError("multi-host runs (LRGE_COORDINATOR): ROADMAP.md item 13")
     setup_logging(args.quiet, args.verbose)
+    emit_output = not init_from_env() or torch.distributed.get_rank() == 0
 
     tmp = create_temp_dir(args.temp_dir, args.keep_temp)
     (logger.info if args.keep_temp else logger.debug)(
@@ -212,7 +214,9 @@ def main(argv=None, device: torch.device | None = None) -> int:
             )
         else:
             out_text = f"{est:.0f}\n"
-        if args.output == "-":
+        if not emit_output:
+            pass  # a non-zero rank of a multi-process run: rank 0 writes
+        elif args.output == "-":
             sys.stdout.write(out_text)
         else:
             Path(args.output).write_text(out_text)

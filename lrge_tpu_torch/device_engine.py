@@ -18,8 +18,22 @@ counts equal the host engine's; every such row is tallied in
 ``fallback_triggers``.  ``count_batch`` can also collect each row's
 passing target ids (ava, ``--use-min-ref``) and apply the ``-F``
 overhang filter on the device (``supports_device_filter``; never under
-``pb_mode`` or on a multi-sub index, where the strategies filter on the
-host, as the reference does).
+``pb_mode``, on a multi-sub index or on a sharded one, where the
+strategies filter on the host, as the reference does).
+
+With several devices (every visible CUDA device by default, or the
+caller's list, cut to ``LRGE_SHARDS``) the engine shards the index by
+target instead (``parallel/sharded.py``, the reference's set-up at
+device_engine.py:253-323): each super-batch is sketched once and counted
+against every shard, each on its own device.  Under a multi-process
+launch the shards span every process's devices, and the forward
+two-set path counts in lockstep (``parallel/distributed.py``); engines
+built ``local_only`` shard over this process's devices alone.
+
+Shape knobs, as the reference reads them: ``LRGE_DEVICE_BATCH``,
+``LRGE_DEVICE_ANCHORS``, ``LRGE_DEVICE_WINDOW``, ``LRGE_DEVICE_SUPER``,
+``LRGE_DEVICE_BUCKET`` (a comma list), ``LRGE_BUCKET_BITS`` (the
+single-device dictionary), ``LRGE_SHARDS`` and ``LRGE_MESH_DATA``.
 """
 
 from __future__ import annotations
@@ -42,6 +56,9 @@ from .ops.overlap import (
     pb_map_many, sketch_lookup_many, sketch_map_many,
 )
 from .ops.sketch import sketch_seqs_native
+from .ops.sketch_torch import sketch_core
+from .parallel.distributed import is_multihost
+from .parallel.sharded import ShardedGroupedIndex, sharded_count
 
 logger = logging.getLogger("lrge")
 
@@ -69,17 +86,41 @@ def resolve_engine(engine: str, n_work_rows: int) -> str:
     return "device" if n_work_rows >= min_rows else "host"
 
 
-def default_device() -> torch.device:
-    """The one CUDA device the engine runs on; raises without CUDA or
-    with several cards (multi-GPU is ROADMAP.md item 13)."""
+def default_devices() -> list[torch.device]:
+    """Every visible CUDA device; raises without CUDA."""
     if not torch.cuda.is_available():
         raise RuntimeError("the device engine needs CUDA: no CUDA device is available")
-    if torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "more than one GPU: multi-GPU counting is ROADMAP.md item 13; "
-            "pass an explicit device"
-        )
-    return torch.device("cuda", 0)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def shard_plan(device=None, nproc: int = 1) -> tuple[list[torch.device], int]:
+    """``(this process's devices, shards over all processes)``, the
+    reference's rule (device_engine.py:253-262): ``device`` is one device
+    or a list (repeats allowed, as tests and one-card runs use), default
+    every visible CUDA device; ``nproc`` processes each bring as many.
+    ``LRGE_SHARDS`` cuts the shard count; at one shard the engine runs on
+    the first device alone."""
+    if device is None:
+        devices = default_devices()
+    elif isinstance(device, (str, torch.device)):
+        devices = [torch.device(device)]
+    else:
+        devices = [torch.device(d) for d in device]
+    total = nproc * len(devices)
+    n = min(int(os.environ.get("LRGE_SHARDS", "0")) or total, total)
+    if n <= 1:
+        return devices[:1], 1
+    if n % nproc:
+        raise ValueError(f"LRGE_SHARDS={n} is not a multiple of the {nproc} processes")
+    return devices[: n // nproc], n
+
+
+def strategy_engine(index: TargetIndex, **kw) -> "DeviceOverlapEngine":
+    """The engine of a path whose schedule is not lockstep (all-vs-all,
+    ``-F``, ``--use-min-ref``): under a multi-process launch it shards
+    over this process's devices alone and runs replicated, rank 0
+    printing (the reference's device_engine.py:132-141)."""
+    return DeviceOverlapEngine(index, local_only=is_multihost(), **kw)
 
 
 def _has_native_count() -> bool:
@@ -107,14 +148,29 @@ class DeviceOverlapEngine:
         self,
         index: TargetIndex,
         *,
-        device: torch.device,
+        device=None,
         batch_size: int = 128,
         num_anchors: int = 4096,
         window: int = 32,
         length_buckets: tuple = LENGTH_BUCKETS,
         super_batch: int = 4,
+        local_only: bool = False,
     ):
-        self.device = torch.device(device)
+        """``device``: one ``torch.device`` or a list to shard the index
+        over (:func:`shard_plan`; default every visible CUDA device).
+        ``local_only``: under a multi-process launch, shard over this
+        process's devices alone and run replicated (the ava, ``-F`` and
+        ``--use-min-ref`` paths, whose schedules are not lockstep)."""
+        # shape knobs, read as the reference reads them (device_engine.py:167-174)
+        batch_size = int(os.environ.get("LRGE_DEVICE_BATCH", batch_size))
+        num_anchors = int(os.environ.get("LRGE_DEVICE_ANCHORS", num_anchors))
+        window = int(os.environ.get("LRGE_DEVICE_WINDOW", window))
+        super_batch = int(os.environ.get("LRGE_DEVICE_SUPER", super_batch))
+        if "LRGE_DEVICE_BUCKET" in os.environ:
+            length_buckets = tuple(int(t) for t in os.environ["LRGE_DEVICE_BUCKET"].split(","))
+        nproc = 1 if local_only or not is_multihost() else torch.distributed.get_world_size()
+        self.devices, n_shards = shard_plan(device, nproc)
+        self.device = self.devices[0]
         self.index = index
         self.params = index.params
         self.host = OverlapEngine(index)
@@ -135,8 +191,31 @@ class DeviceOverlapEngine:
             )
         self.device_ok = len(index.keys) > 0
         self.gdev = None
+        self.sharded = None  # ShardedGroupedIndex (host planes) when sharded
+        self.shards = []  # this process's shards, a GroupedDeviceIndex each
+        self.lockstep = False  # the shards span processes
         if not self.device_ok:
             return
+        if n_shards > 1:
+            # the data axis is the process axis; the index axis each
+            # process's devices
+            n_data = int(os.environ.get("LRGE_MESH_DATA", "0")) or nproc
+            if n_data != nproc:
+                raise ValueError(f"LRGE_MESH_DATA={n_data}: the data axis is the {nproc} process(es)")
+            sgi = ShardedGroupedIndex.from_host(index, n_shards)
+            if sgi is not None:
+                first = (torch.distributed.get_rank() if nproc > 1 else 0) * len(self.devices)
+                self.sharded = sgi
+                self.shards = sgi.place(self.devices, first)
+                self.lockstep = nproc > 1
+                logger.debug(
+                    "device engine: sharded over %d devices (%dx%d)", n_shards, nproc, len(self.devices)
+                )
+                return
+            logger.warning(
+                "sharded index build failed (bucket collisions); falling back to single-device grouped path"
+            )
+            self.devices = self.devices[:1]
         # bound per-query anchors by splitting a large index into
         # sub-indexes by target (counts are disjoint per sub and summed);
         # the minimizer lookup is shared across subs.  Keyed to the base
@@ -146,7 +225,10 @@ class DeviceOverlapEngine:
         exp_anchors = (self.length_buckets[0] / 3.0) * (n_post / n_uniq)
         n_sub = max(1, int(np.ceil(exp_anchors / (0.6 * num_anchors))))
         # ~4 buckets per unique key, capped so the offsets stay <= 256 MB
-        bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
+        if "LRGE_BUCKET_BITS" in os.environ:
+            bucket_bits = int(os.environ["LRGE_BUCKET_BITS"])
+        else:
+            bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
         self.gdev = GroupedDeviceIndex.from_host(index, self.device, n_sub=n_sub, bucket_bits=bucket_bits)
         if self.gdev is None:
             # from_host logged why: every posting pruned, or a wide index
@@ -221,7 +303,7 @@ class DeviceOverlapEngine:
 
     def supports_device_filter(self) -> bool:
         """Whether ``-F`` can run on the device: only in the fused
-        single-sub ONT pipeline (the extent carries are constant-span
+        single-sub ONT pipeline on one device (the extent carries are constant-span
         only, and the extent reduce runs on the lookup's own ranges);
         chain starts pack as ``(rpos << 16) | qpos`` in int32, so every
         target must be shorter than 2^15 and every padded query (plus k)
@@ -229,6 +311,7 @@ class DeviceOverlapEngine:
         return (
             self.device_ok
             and not self.pb_mode
+            and self.sharded is None
             and self.gdev is not None
             and self.gdev.n_sub == 1
             and int(np.max(self.index.lengths)) < (1 << 15)
@@ -389,6 +472,24 @@ class DeviceOverlapEngine:
             mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (span[:c] << 1) | mz.strand.astype(np.int32)[:c]
         return qhi, qlo, mps, mcount
 
+    def query_planes(self, codes, lengths, ids, seqs, L):
+        """The sharded path's query planes of a super-batch (``ids`` ``[NB,
+        B]``, -1 padding), flattened to ``R = NB * B`` rows on
+        ``self.device``: ``(q0, q1, mps, mcount)``.  ONT: the device sketch
+        of the unpacked ``codes`` (the reference's ``sketch_many``), a
+        dummy ``q1``; PacBio: the host planes (:meth:`_pb_planes`)."""
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        M = minimizer_cap(L)
+        if self.pb_mode:
+            planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], M)
+            return tuple(put(a) for a in planes)
+        p = self.params
+        R = ids.size
+        mhash, mpos, mstrand, mcount = sketch_core(
+            put(codes.reshape(R, -1)), put(lengths.reshape(R)), k=p.k, w=p.w, max_minimizers=M
+        )
+        return mhash, torch.zeros((R, 1), dtype=torch.int64, device=self.device), mpos * 2 + mstrand, mcount
+
     def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
         """Enqueue the super-batches of one length bucket; yields
         ``(nb, A, codes, lengths, ids, packed_device_plane,
@@ -396,11 +497,23 @@ class DeviceOverlapEngine:
         arguments of :func:`sketch_map_many`; on a multi-sub index and
         under ``pb_mode`` (no ``-F``: :meth:`supports_device_filter`)
         one lookup per super-batch feeds one map per sub
-        (:func:`map_subs`, which merges them into the same planes)."""
+        (:func:`map_subs`, which merges them into the same planes); on a
+        sharded index the query planes (:meth:`query_planes`) go through
+        :func:`~lrge_tpu_torch.parallel.sharded.sharded_count`."""
         put = lambda a: torch.from_numpy(a).to(self.device)
         gd, p = self.gdev, self.params
         for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
-            if self.pb_mode:
+            if self.sharded is not None:
+                q0, q1, mps, mcount = self.query_planes(codes, lengths, ids, seqs, L)
+                counts, n_anchors, max_run, pairs = sharded_count(
+                    self.shards, q0, q1, mps, put(lengths).reshape(-1), put(dual).reshape(-1),
+                    put(selfr).reshape(-1), p, num_anchors=A, window=self.window, want_pairs=mode["want_pairs"],
+                )
+                packed = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1)
+                packed = packed.reshape(*ids.shape, 4).to(torch.int32)
+                if pairs is not None:
+                    pairs = pairs.reshape(*ids.shape, -1).to(torch.int32)
+            elif self.pb_mode:
                 planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
                 qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
                 packed, pairs = pb_map_many(
@@ -413,7 +526,7 @@ class DeviceOverlapEngine:
                     gd, p, num_anchors=A, window=self.window, **mode,
                 )
             else:
-                found, mps, mcount = sketch_lookup_many(put(pack2bit_host(codes)), put(lengths), gd, p)
+                found, mps, mcount = sketch_lookup_many(put(codes), put(lengths), gd, p)
                 packed, pairs = map_subs(
                     found, mps, mcount, put(lengths), put(dual), put(selfr), gd, p, num_anchors=A,
                     window=self.window, want_pairs=mode["want_pairs"],

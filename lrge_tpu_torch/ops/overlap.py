@@ -871,34 +871,39 @@ def map_found_core(
     return counts, total, max_run, pairs
 
 
-def _sketch_lookup_rows(codes_p, lengths, gi: GroupedDeviceIndex, p):
-    """Unpack, sketch and lookup over a super-batch flattened to one row
-    axis: ``(qlen, found, mps, mcount, lo, occ)``."""
-    NB, B, Lq = codes_p.shape
-    codes = _unpack2bit(codes_p, Lq * 4).reshape(NB * B, Lq * 4)
+def _sketch_lookup_rows(codes, lengths, gi: GroupedDeviceIndex, p):
+    """Sketch and lookup over a super-batch of codes (``[NB, B, L]`` uint8,
+    4 = ambiguous) flattened to one row axis: ``(qlen, found, mps,
+    mcount, lo, occ)``."""
+    NB, B, L = codes.shape
+    codes = codes.reshape(NB * B, L)
     qlen = lengths.reshape(NB * B).long()
     return (qlen, *sketch_lookup_core(codes, qlen, gi, k=p.k, w=p.w, q_occ_frac=p.q_occ_frac))
 
 
-def sketch_lookup_many(codes_p, lengths, gi: GroupedDeviceIndex, params):
-    """The ONT lookup alone over a super-batch of 2-bit packed codes
-    (``[NB, B, L//4]`` uint8), in one pass over the flattened rows (the
-    flatten branch of ``sketch_lookup_many_core``, overlap_jax.py:
-    1544-1571): ``(found, mps, mcount)``, ``[NB, B, M]``, ``[NB, B, M]``
-    and ``[NB, B]``.  Every sub-index maps from this one lookup."""
-    NB, B, _ = codes_p.shape
-    _, found, mps, mcount, _, _ = _sketch_lookup_rows(codes_p, lengths, gi, params)
+def sketch_lookup_many(codes, lengths, gi: GroupedDeviceIndex, params):
+    """The ONT lookup alone over a super-batch of codes (``[NB, B, L]``
+    uint8, 4 = ambiguous, as the reference's multi-sub path takes them),
+    in one pass over the flattened rows (the flatten branch of
+    ``sketch_lookup_many_core``, overlap_jax.py:1544-1571): ``(found, mps,
+    mcount)``, ``[NB, B, M]``, ``[NB, B, M]`` and ``[NB, B]``.  Every
+    sub-index maps from this one lookup."""
+    NB, B, _ = codes.shape
+    _, found, mps, mcount, _, _ = _sketch_lookup_rows(codes, lengths, gi, params)
     return found.reshape(NB, B, -1), mps.reshape(NB, B, -1), mcount.reshape(NB, B)
 
 
-def sketch_anchors(codes_p, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
-    """The chain DP's inputs over a super-batch, as the ONT path builds
-    them (:func:`sketch_map_many`; on a multi-sub index
-    :func:`sketch_lookup_many` and the first sub's :func:`map_found_many`,
-    up to the chain DP): ``(key2_s, rpos_s, qpos_s, valid_s)``, each
-    ``[NB * B, num_anchors]``."""
+def sketch_anchors(codes, lengths, qdualrank, qselfrid, gi: GroupedDeviceIndex, params, *, num_anchors):
+    """The chain DP's inputs over a super-batch of codes (``[NB, B, L]``
+    uint8), as the ONT path builds them (:func:`sketch_map_many`, whose
+    2-bit packed codes read an ambiguous base as ``A``; on a multi-sub
+    index :func:`sketch_lookup_many` and the first sub's
+    :func:`map_found_many`, up to the chain DP): ``(key2_s, rpos_s,
+    qpos_s, valid_s)``, each ``[NB * B, num_anchors]``."""
     p = params
-    qlen, found, mps, _, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    if gi.n_sub == 1:
+        codes = codes & 3
+    qlen, found, mps, _, lo, occ = _sketch_lookup_rows(codes, lengths, gi, p)
     if gi.n_sub > 1:
         lo, occ = found_ranges(found, gi)
     return expand_sort(
@@ -923,7 +928,9 @@ def sketch_map_many(
         raise ValueError("the fused pipeline maps one sub-index: use sketch_lookup_many and map_subs")
     NB, B, _ = codes_p.shape
     p = params
-    qlen, _, mps, mcount, lo, occ = _sketch_lookup_rows(codes_p, lengths, gi, p)
+    qlen, _, mps, mcount, lo, occ = _sketch_lookup_rows(
+        _unpack2bit(codes_p, codes_p.shape[-1] * 4), lengths, gi, p
+    )
     counts, n_anchors, max_run, pairs = map_found_core(
         lo, occ, mps, qlen, qdualrank.reshape(-1).long(), qselfrid.reshape(-1).long(), gi,
         p.chn_pen_gap(), k=p.k, max_gap=p.max_gap, bw=p.bw, min_score=p.min_chain_score,

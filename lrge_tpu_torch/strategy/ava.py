@@ -21,11 +21,10 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .. import io as lio
 from ..compat.rust_rand import unique_random_set
-from ..device_engine import DeviceOverlapEngine, default_device, resolve_engine
+from ..device_engine import resolve_engine, strategy_engine
 from ..engine import ParallelHostMapper
 from ..errors import TooManyReadsError
 from ..estimate import Estimate, per_read_estimate
@@ -39,7 +38,9 @@ DEFAULT_AVA_NUM_READS = 25_000
 
 class AvaStrategy(Estimate):
     """All-vs-all strategy (``-n``, with or without ``-F``); ``device``
-    pins the device engine's ``torch.device`` (default: the one CUDA card)."""
+    pins the device engine's ``torch.device``, or a list to shard over
+    (default: every visible CUDA card).  Under a multi-process launch it
+    runs replicated on each process's devices, rank 0 printing."""
 
     def __init__(
         self,
@@ -54,7 +55,7 @@ class AvaStrategy(Estimate):
         platform: Platform = Platform.NANOPORE,
         engine: str = "host",
         device_paf: bool = False,
-        device: torch.device | None = None,
+        device=None,
     ):
         self.engine = engine
         self.device_paf = device_paf
@@ -109,8 +110,7 @@ class AvaStrategy(Estimate):
         engine = self._build_engine(reads)
         read_lengths = {n: len(s) for n, s in reads}
         if resolve_engine(self.engine, len(reads)) == "device":
-            device = self.device if self.device is not None else default_device()
-            dev = DeviceOverlapEngine(engine.index, device=device)
+            dev = strategy_engine(engine.index, device=self.device)
             if not self.remove_internal:
                 return self._count_device(engine, reads, sum_len, read_lengths, dev=dev)
             if dev.supports_device_filter():
@@ -254,8 +254,9 @@ class AvaBuilder:
         self._kw["device_paf"] = yes
         return self
 
-    def device(self, device: torch.device | None) -> "AvaBuilder":
-        """The device engine's ``torch.device`` (default: the one CUDA card)."""
+    def device(self, device) -> "AvaBuilder":
+        """The device engine's ``torch.device``, or a list to shard over
+        (default: every visible CUDA card)."""
         self._kw["device"] = device
         return self
 

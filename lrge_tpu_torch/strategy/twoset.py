@@ -30,15 +30,15 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .. import io as lio
 from ..compat.rust_rand import split_into_sets, unique_random_set
-from ..device_engine import DeviceOverlapEngine, default_device, overhang_heavy, resolve_engine
+from ..device_engine import DeviceOverlapEngine, overhang_heavy, resolve_engine, strategy_engine
 from ..engine import OverlapEngine, ParallelHostMapper
 from ..errors import DuplicateReadIdentifierError, TooFewReadsError, TooManyReadsError
 from ..estimate import Estimate, per_read_estimate, per_read_estimate_batch
 from ..ops.index import build_index
+from ..parallel.distributed import multihost_count_batch
 from ..platform import Platform, preset_for
 
 logger = logging.getLogger("lrge")
@@ -72,8 +72,8 @@ class TwoSetStrategy(Estimate):
     """Two-set strategy (forward and ``--use-min-ref``, with or without
     ``-F``); ``engine`` is ``"host"``, ``"device"`` or ``"auto"``
     (:func:`~lrge_tpu_torch.device_engine.resolve_engine`), and
-    ``device`` pins the device engine's ``torch.device`` (default: the
-    one CUDA card)."""
+    ``device`` pins the device engine's ``torch.device``, or a list of
+    devices to shard the index over (default: every visible CUDA card)."""
 
     def __init__(
         self,
@@ -90,7 +90,7 @@ class TwoSetStrategy(Estimate):
         platform: Platform = Platform.NANOPORE,
         engine: str = "host",
         device_paf: bool = False,
-        device: torch.device | None = None,
+        device=None,
     ):
         self.input = Path(input_path)
         self.engine = engine
@@ -189,10 +189,6 @@ class TwoSetStrategy(Estimate):
     def _build_engine(self, reads):
         return build_engine_no_fork(reads, preset_for(self.platform, dual=True))
 
-    def _device_engine(self, index) -> DeviceOverlapEngine:
-        device = self.device if self.device is not None else default_device()
-        return DeviceOverlapEngine(index, device=device)
-
     def _write_paf_host(self, index, rows):
         """Exact ``overlaps.paf`` side output for device runs (host re-map)."""
         mapper = ParallelHostMapper(index, self.threads)
@@ -209,9 +205,13 @@ class TwoSetStrategy(Estimate):
         device engine or, as in the reference, the exact host engine."""
         engine = self._build_engine(targets)
         if resolve_engine(self.engine, len(queries)) == "device":
-            dev = self._device_engine(engine.index)
             if not self.remove_internal:
-                return self._align_reads_device(dev, queries, avg_target_len)
+                # the one lockstep path: under a multi-process launch its
+                # engine shards over every process's devices
+                return self._align_reads_device(
+                    DeviceOverlapEngine(engine.index, device=self.device), queries, avg_target_len
+                )
+            dev = strategy_engine(engine.index, device=self.device)
             if dev.supports_device_filter():
                 return self._align_reads_device(
                     dev, queries, avg_target_len, filter_ratio=self.max_overhang_ratio
@@ -251,15 +251,20 @@ class TwoSetStrategy(Estimate):
     def _align_reads_device(self, dev, queries, avg_target_len, filter_ratio=None):
         """Device counting path, with the ``-F`` filter applied on the
         device when ``filter_ratio`` is set (PAF side output only under
-        -C/-D)."""
+        -C/-D).  An engine sharded across processes counts in lockstep
+        (:func:`~lrge_tpu_torch.parallel.distributed.multihost_count_batch`),
+        every process getting the global counts."""
         logger.info(
             "Using device overlap engine on %s%s (%s)", dev.device,
             "" if filter_ratio is None else " with -F filtering", self._device_paf_note(),
         )
         names = [n for n, _ in queries]
         seqs = [s for _, s in queries]
-        dev.warmup([len(s) for s in seqs], filter_ratio=filter_ratio)
-        res = dev.count_batch(names, seqs, filter_ratio=filter_ratio)
+        if dev.lockstep:
+            res = multihost_count_batch(dev, names, seqs)
+        else:
+            dev.warmup([len(s) for s in seqs], filter_ratio=filter_ratio)
+            res = dev.count_batch(names, seqs, filter_ratio=filter_ratio)
         if self.device_paf:
             self._write_paf_host(dev.index, [q for q, h in zip(queries, res.had_mapping) if h])
         no_mapping_count = int((~res.had_mapping).sum())
@@ -280,7 +285,7 @@ class TwoSetStrategy(Estimate):
         engine = self._build_engine(queries)  # raises on duplicate query names
         # the work rows are the streamed target reads
         if resolve_engine(self.engine, len(targets)) == "device":
-            dev = self._device_engine(engine.index)
+            dev = strategy_engine(engine.index, device=self.device)
             if not self.remove_internal:
                 return self._align_reads_inverse_device(dev, targets, queries, avg_target_len)
             if dev.supports_device_filter():
@@ -414,8 +419,9 @@ class TwoSetBuilder:
         self._kw["device_paf"] = yes
         return self
 
-    def device(self, device: torch.device | None) -> "TwoSetBuilder":
-        """The device engine's ``torch.device`` (default: the one CUDA card)."""
+    def device(self, device) -> "TwoSetBuilder":
+        """The device engine's ``torch.device``, or a list to shard over
+        (default: every visible CUDA card)."""
         self._kw["device"] = device
         return self
 

@@ -7,9 +7,10 @@
   prints what ``python -m lrge_tpu --engine host`` prints, byte for
   byte; a fresh interpreter running the port's CLI, on the device or
   the host engine, loads neither JAX nor any ``lrge_tpu`` module.
-* Modes outside the port so far (several hosts) raise; nothing falls
-  back to another engine.  (PacBio on the device:
-  ``tests/test_torch_cli_modes.py`` and ``tests/test_torch_pacbio.py``.)
+* A multi-process launch whose env contract is incomplete is refused;
+  nothing falls back to another engine.  (PacBio on the device:
+  ``tests/test_torch_cli_modes.py`` and ``tests/test_torch_pacbio.py``;
+  several processes: ``tests/test_torch_distributed.py``.)
 """
 
 import gzip
@@ -226,13 +227,18 @@ def test_device_engine_without_cuda_raises(verify_reads):
 @pytest.mark.parametrize(
     "extra,env,item",
     [
-        ([], {"LRGE_COORDINATOR": "localhost:1234"}, "item 13"),
+        ([], {"LRGE_COORDINATOR": "localhost:1234"}, "LRGE_NUM_PROCESSES, LRGE_PROCESS_ID"),
     ],
 )
 def test_modes_outside_the_slice_raise(verify_reads, monkeypatch, extra, env, item):
+    """Every CLI mode is in the port now (the complete multi-process env
+    contract runs in tests/test_torch_distributed.py); ``LRGE_COORDINATOR``
+    without the rest of the contract is refused, naming what is missing."""
+    for key in ("LRGE_NUM_PROCESSES", "LRGE_PROCESS_ID"):
+        monkeypatch.delenv(key, raising=False)
     for key, val in env.items():
         monkeypatch.setenv(key, val)
     sizes = [] if extra[:1] == ["-n"] else ["-T", "300", "-Q", "80"]
     args = [str(verify_reads), *sizes, *extra, "-qqq"]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         cli.main(args, device=CPU)

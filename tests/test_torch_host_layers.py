@@ -1,8 +1,9 @@
 """The PyTorch port's own copies of the reference's host layers.
 
-* No module of ``lrge_tpu_torch`` and no line of ``chip_smoke.py`` or
-  ``chip_profile.py`` imports ``lrge_tpu`` (an AST scan, lazy imports
-  included).
+* No module of ``lrge_tpu_torch`` (``parallel/`` included) and no line
+  of ``chip_smoke.py`` (its rank launcher included) or
+  ``chip_profile.py`` imports ``lrge_tpu`` or ``jax`` (an AST scan, lazy
+  imports included).
 * The copies agree with the originals on small inputs made from a seed:
   the index build, the host engine's counts and pair lists (with the
   native extension and without it), the readers of every input format,
@@ -43,12 +44,12 @@ from lrge_tpu_torch.platform import Platform, preset_for
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _reference_imports(path: Path) -> list:
-    """``file:line`` of every import of ``lrge_tpu`` or ``lrge_tpu.*`` in
-    one source file: import statements at any depth, and
+def _reference_imports(path: Path, packages=("lrge_tpu",)) -> list:
+    """``file:line`` of every import of one of ``packages`` (or a module
+    of one) in one source file: import statements at any depth, and
     ``importlib.import_module``/``__import__`` calls on a literal name."""
     hits = []
-    is_ref = lambda name: name == "lrge_tpu" or name.startswith("lrge_tpu.")
+    is_ref = lambda name: any(name == p or name.startswith(p + ".") for p in packages)
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         names = []
         if isinstance(node, ast.Import):
@@ -64,13 +65,28 @@ def _reference_imports(path: Path) -> list:
     return hits
 
 
+def _port_files() -> list:
+    return sorted((REPO / "lrge_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
+
+
 def test_port_never_imports_reference():
-    files = sorted((REPO / "lrge_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
+    files = _port_files()
     assert len(files) > 20
     assert [h for f in files for h in _reference_imports(f)] == []
     # the scan does see an import of the reference
     probe = REPO / "tests" / "test_torch_host_layers.py"
     assert _reference_imports(probe)
+
+
+def test_port_never_imports_jax():
+    """The same scan for ``jax``, over the port's multi-device and
+    multi-process modules as over every other."""
+    files = _port_files()
+    parallel = {REPO / "lrge_tpu_torch" / "parallel" / f for f in ("__init__.py", "sharded.py", "distributed.py")}
+    assert parallel <= set(files)
+    assert [h for f in files for h in _reference_imports(f, ("jax", "jaxlib"))] == []
+    probe = REPO / "tests" / "test_torch_sharded.py"
+    assert _reference_imports(probe, ("jax",))
 
 
 @pytest.fixture(scope="module")

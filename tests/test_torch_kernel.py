@@ -7,7 +7,7 @@ every kernel instance.  On a CUDA card (marker ``gpu``; skipped without
 one): each variant equals its plain version bit for bit at every
 window and on rows of the largest bucket's length, and the device
 engine's counts equal the exact host engine's (ONT and PacBio, one
-sub-index and several).  On the card:
+sub-index and several, and a sharded index on the card twice).  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernel.py
 """
@@ -326,3 +326,42 @@ def test_multisub_engine_on_card_matches_host():
         np.testing.assert_array_equal(res.counts, [c for c, _ in host])
         np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
         assert res.fallback_rows < len(queries) // 2
+
+
+@pytest.mark.gpu
+def test_sharded_engine_on_card_matches_single_device():
+    # two shards on the one card: each launches its own chain DP a
+    # super-batch, and the merged counts equal the single-device engine's
+    # and the host's, row for row
+    need_cuda()
+    rng = np.random.default_rng(5150)
+    genome = rng.choice(list(b"ACGT"), size=100_000).astype(np.uint8).tobytes()
+
+    def reads(n, length):
+        out = []
+        for _ in range(n):
+            pos = int(rng.integers(0, len(genome) - length))
+            s = np.frombuffer(genome[pos : pos + length], np.uint8).copy()
+            hit = rng.random(length) < 0.04
+            s[hit] = rng.choice(list(b"ACGT"), size=int(hit.sum()))
+            out.append(s.tobytes())
+        return out
+
+    targets, queries = reads(80, 2000), reads(40, 2500)
+    tnames = [b"t%d" % i for i in range(80)]
+    qnames = [b"q%d" % i for i in range(40)]
+    card = torch.device("cuda", 0)
+    kw = dict(batch_size=16, length_buckets=(4096,))
+    for platform, counter in ((Platform.NANOPORE, "launches"), (Platform.PACBIO, "span_launches")):
+        index = build_index(targets, tnames, preset_for(platform, dual=True))
+        one = DeviceOverlapEngine(index, device=card, **kw).count_batch(qnames, queries)
+        dev = DeviceOverlapEngine(index, device=[card, card], **kw)
+        assert len(dev.shards) == 2 and all(gi.uhash.device.type == "cuda" for gi in dev.shards)
+        before = getattr(chain_dp_skip, counter)
+        res = dev.count_batch(qnames, queries)
+        # 40 rows: 3 batches of 16, one super-batch, one launch a shard
+        assert getattr(chain_dp_skip, counter) == before + 2
+        np.testing.assert_array_equal(res.counts, one.counts)
+        np.testing.assert_array_equal(res.had_mapping, one.had_mapping)
+        host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
+        np.testing.assert_array_equal(res.counts, [c for c, _ in host])

@@ -69,15 +69,26 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    one card: NCCL refuses a duplicate GPU), each holding one shard, the
    forward two-set path counting in lockstep: rank 0's estimate must be
    phase 4's, rank 1 must write nothing.  No NCCL collective runs: the
-   machine has one card.
+   machine has one card;
+11. the library surface (``lrge_tpu_torch.twoset``/``ava``): the two-set
+   doc example at phase 4's run shape with ``.engine("auto")`` must give
+   phase 4's CLI estimate with as many ``BASE`` launches; the all-vs-all
+   doc example on the first 5,000 reads of phase 7's corpus must give
+   its ``.engine("host")`` result; phase 4's warm pass's per-pass record
+   (``last_phases``, ``anchor_slot_occupancy`` = ``last_anchors_valid /
+   last_anchor_slots``, the slots every super-batch's ``SUP x B x A``);
+   and ``build_index(device="device")`` over phase 4's 10,000 targets
+   must equal the native sketch's index (both walls printed, and the
+   rows the device sketch left to the host).
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
 too (counts reset just before it, read just after).  Each phase prints
 its wall time.  The line before the last is the kernels' JSON record
 (the main variant's also carries phase 9's case and CLI launches under
-``multi_sub_path``, and it and the span variant phase 10's engine
-launches under ``sharded_path``); the last line is ``{"ok": true,
+``multi_sub_path``, phase 11's library runs' under ``library_path``, and
+it and the span variant phase 10's engine launches under
+``sharded_path``); the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1 and prints no result.
 
 ``python3 chip_smoke.py --rank-cli ARGS`` is one rank of phase 10's
@@ -109,6 +120,7 @@ AVA_FILTER_READS = 5_000  # phase 7's all-vs-all -F rows (the first of its subsa
 ACC_MEAN_LEN, ACC_ERR = 10_000, 0.01  # phase 9's reads: mean 10 kb, 1% substitutions
 SHARDS = 2  # phase 10's shards, all on the one card
 SHARD_AVA_READS = 5_000  # phase 10's all-vs-all rows (the first of phase 7's subsample)
+AVA_LIB_READS = 5_000  # phase 11's all-vs-all library run: the first reads of phase 7's corpus
 RANK_TIMEOUT = 600  # seconds a rank of phase 10's two-process run may take
 SAMPLE = 300  # rows held against the host per pass
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
@@ -346,12 +358,18 @@ def write_corpus(path: Path, n_reads: int, genome_size: int = GENOME, mean_len: 
 
 
 class _Records(logging.Handler):
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.messages = []
+    """Every record of a logger at ``level`` and above."""
+
+    def __init__(self, level=logging.INFO):
+        super().__init__(level)
+        self.records = []
 
     def emit(self, record):
-        self.messages.append(record.getMessage())
+        self.records.append(record)
+
+    @property
+    def messages(self) -> list:
+        return [r.getMessage() for r in self.records]
 
 
 LOGGED = "Using device overlap engine on cuda"
@@ -499,9 +517,11 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     main_path_case(ck, engine, names, seqs, recs_ext, extents=True)
     engine.warmup([len(s) for s in seqs])
     res, _, report = timed_pass("main", engine, names, seqs)
+    record = dict(valid=engine.last_anchors_valid, slots=engine.last_anchor_slots,
+                  phases=dict(engine.last_phases), want_slots=slot_count(engine, seqs))
     check_sample("main", engine, names, seqs, res, None)
     print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
-    single = dict(index=engine.index, names=names, seqs=seqs, res=res)
+    single = dict(index=engine.index, names=names, seqs=seqs, res=res, record=record)
 
     # phase 5: -F on the same run shape
     ext_launches = run_cli(
@@ -625,6 +645,18 @@ def super_batch_count(engine, seqs) -> int:
     for L, rows in bucket_rows.items():
         batches = -(-len(rows) // engine.batch_size)
         n += -(-batches // engine.bucket_shape(L)[1])
+    return n
+
+
+def slot_count(engine, seqs) -> int:
+    """The anchor slots that one ``count_batch`` pass over ``seqs``
+    executes: each bucket's super-batches x ``SUP`` x ``B`` x ``A``."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    n = 0
+    for L, rows in bucket_rows.items():
+        A, SUP = engine.bucket_shape(L)
+        batches = -(-len(rows) // engine.batch_size)
+        n += -(-batches // SUP) * SUP * engine.batch_size * A
     return n
 
 
@@ -863,6 +895,124 @@ def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
     return launches
 
 
+def library_run(ck, tag, configured, fq, gpu_line, device=True):
+    """One run of the library's doc example (``configured.build(fq).estimate(True,
+    LOWER_QUANTILE, UPPER_QUANTILE)``), every kernel count set to 0 just
+    before it and read just after; with ``device`` it must log the device
+    engine and launch ``BASE``.  Returns ``(result, launches by variant)``."""
+    from lrge_tpu_torch import LOWER_QUANTILE, UPPER_QUANTILE
+
+    records = _Records()
+    lg = logging.getLogger("lrge")
+    lg.addHandler(records)
+    lg.setLevel(logging.INFO)
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    try:
+        result = configured.build(fq).estimate(True, LOWER_QUANTILE, UPPER_QUANTILE)
+    finally:
+        wall = time.perf_counter() - t0
+        counts = read_counts(ck)
+        lg.removeHandler(records)
+    engaged = any(m.startswith(LOGGED) for m in records.messages)
+    if device and not (engaged and counts["main"] > 0):
+        fail(f"[{tag}] the library run did not run the device engine and launch BASE")
+    if result.estimate is None or not np.isfinite(result.estimate):
+        fail(f"[{tag}] no finite estimate: {result.estimate}")
+    print(f"[{tag}] estimate {result.estimate:.0f} bp (IQR {result.lower:.0f} - {result.upper:.0f}), no mapping "
+          f"{result.no_mapping_count}, wall {wall:.1f} s, kernel launches by variant {counts} ({gpu_line})",
+          flush=True)
+    return result, counts
+
+
+def library_paths(ck, dev, gpu_line, fq, fq_ava, cli_launches, record):
+    """Phase 11, the library surface on the card: (a) the two-set doc
+    example at phase 4's run shape must print phase 4's CLI estimate with
+    as many ``BASE`` launches; (b) the all-vs-all doc example on the first
+    ``AVA_LIB_READS`` reads of phase 7's corpus must give its host
+    engine's result; (c) phase 4's warm pass's per-pass record
+    (``record``); (d) ``build_index(device="device")`` over phase 4's
+    targets on ``dev`` must equal the native (``"auto"``) index.  Returns the
+    library runs' ``BASE`` launches."""
+    from lrge_tpu_torch import ava, twoset
+    from lrge_tpu_torch.ops.index import build_index
+    from lrge_tpu_torch.platform import Platform, preset_for
+    from lrge_tpu_torch.strategy import TwoSetStrategy
+
+    tmp = fq.parent / "library"
+    tmp.mkdir()
+    # (a) two-set: the CLI's estimate and launches
+    configured = (twoset.Builder().target_num_reads(T).query_num_reads(Q).seed(SEED).threads(8)
+                  .engine("auto").tmpdir(tmp / "twoset"))
+    result, counts = library_run(ck, "library twoset", configured, fq, gpu_line)
+    cli_out = (fq.parent / "est.txt").read_text()
+    if f"{result.estimate:.0f}\n" != cli_out:
+        fail(f"[library twoset] estimate {result.estimate:.0f} != phase 4's CLI estimate {cli_out.strip()}")
+    if counts["main"] != cli_launches:
+        fail(f"[library twoset] {counts['main']} BASE launches, phase 4's CLI {cli_launches}")
+    print(f"[library twoset] the estimate and the {counts['main']} BASE launches are phase 4's CLI's", flush=True)
+    launches = {"twoset": counts["main"]}
+
+    # (b) all-vs-all on the first reads of phase 7's corpus, then its host engine
+    fq_lib = tmp / "ava_reads.fq"
+    with open(fq_ava, "rb") as src, open(fq_lib, "wb") as dst:
+        for _ in range(4 * AVA_LIB_READS):
+            dst.write(src.readline())
+    ava_run = lambda engine: (ava.Builder().num_reads(AVA_LIB_READS).seed(SEED).threads(8).engine(engine)
+                               .tmpdir(tmp / f"ava_{engine}"))
+    result, counts = library_run(ck, "library ava", ava_run("auto"), fq_lib, gpu_line)
+    host, _ = library_run(ck, "library ava, host engine", ava_run("host"), fq_lib, gpu_line, device=False)
+    fields = lambda r: (r.estimate, r.lower, r.upper, r.no_mapping_count)
+    if fields(result) != fields(host):
+        fail(f"[library ava] device result {fields(result)} != the host engine's {fields(host)}")
+    print(f"[library ava] equals the host engine's result on {AVA_LIB_READS} reads", flush=True)
+    launches["ava"] = counts["main"]
+
+    # (c) the engine's per-pass record of phase 4's warm pass
+    valid, slots = record["valid"], record["slots"]
+    print(f"[record] phase 4's warm pass: last_phases "
+          f"{json.dumps({k: round(v, 6) for k, v in record['phases'].items()})}, anchors valid {valid:,} of "
+          f"{slots:,} slots, anchor_slot_occupancy {valid / slots:.6f} ({gpu_line})", flush=True)
+    if not 0 < valid <= slots or slots != record["want_slots"]:
+        fail(f"[record] anchors valid {valid}, slots {slots}: want 0 < valid <= slots = {record['want_slots']}")
+    if not {"prep", "enqueue", "collect", "retry"} <= set(record["phases"]):
+        fail(f"[record] last_phases lacks the reference's keys: {sorted(record['phases'])}")
+
+    # (d) the device sketch of phase 4's targets against the native sketch
+    strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp / "index")
+    targets, _, _ = strat.split_fastq()
+    seqs, names = [s for _, s in targets], [n for n, _ in targets]
+    params = preset_for(Platform.NANOPORE, dual=True)
+    walls, indexes = {}, {}
+    messages = _Records(logging.DEBUG)
+    lg = logging.getLogger("lrge")
+    level = lg.level
+    lg.addHandler(messages)
+    lg.setLevel(logging.DEBUG)
+    try:
+        for device in ("auto", "device"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            indexes[device] = build_index(seqs, names, params, device=device, torch_device=dev)
+            torch.cuda.synchronize()
+            walls[device] = time.perf_counter() - t0
+    finally:
+        lg.removeHandler(messages)
+        lg.setLevel(level)
+    sketched = [r.args for r in messages.records if r.getMessage().startswith(f"device sketch on {dev}")]
+    if len(sketched) != 1:
+        fail("[device sketch] build_index(device='device') did not sketch on the card")
+    for f in ("keys", "rid", "pos", "strand", "lengths", "name_rank"):
+        if not np.array_equal(getattr(indexes["device"], f), getattr(indexes["auto"], f)):
+            fail(f"[device sketch] the device index's {f} != the native index's")
+    if indexes["device"].mid_occ != indexes["auto"].mid_occ:
+        fail("[device sketch] the device index's mid_occ != the native index's")
+    print(f"[device sketch] index of {len(seqs)} targets ({len(indexes['auto'].keys):,} postings) equals the "
+          f"native one: device sketch {walls['device']:.3f} s ({sketched[0][1]} rows sketched on the host), "
+          f"native 8-thread sketch {walls['auto']:.3f} s ({gpu_line})", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
@@ -914,6 +1064,8 @@ def main(argv=None) -> int:
         phase_done("phase 9, accurate reads, multi-sub")
         sharded_launches = sharded_paths(ck, dev, gpu_line, fq, ont_single, pb_single, ava_reads[:SHARD_AVA_READS])
         phase_done("phase 10, sharded engine and two processes")
+        lib_launches = library_paths(ck, dev, gpu_line, fq, fq_ava, launches, ont_single["record"])
+        phase_done("phase 11, library surface")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     def timing(m):
@@ -931,7 +1083,8 @@ def main(argv=None) -> int:
 
     kernels = [dict(record("chain_dp_skip", recs, launches),
                     multi_sub_path=dict(launches=acc_launches, **timing(recs["accurate_path"])),
-                    sharded_path=dict(launches=sharded_launches["main"], shards=SHARDS)),
+                    sharded_path=dict(launches=sharded_launches["main"], shards=SHARDS),
+                    library_path=lib_launches),
                dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
                     also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
                dict(record("chain_dp_skip_span", recs_span, span_launches),

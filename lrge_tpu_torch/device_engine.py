@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -546,10 +547,23 @@ class DeviceOverlapEngine:
         ``-F`` on the device (check :meth:`supports_device_filter`
         first): counts and pair lists then hold only targets that pass
         it (``filter_mode`` ``"internal"`` or ``"overhang"``), and
-        ``had_mapping`` stays the pre-filter flag."""
+        ``had_mapping`` stays the pre-filter flag.
+
+        Each call also leaves the reference's per-pass record
+        (device_engine.py:810-812, :1160-1163, :1206-1241):
+        ``last_anchors_valid`` (anchors chained, ``min(n_anchors, A)`` over
+        live rows) and ``last_anchor_slots`` (``SUP * B * A`` a
+        super-batch), reset at the start of every call, and
+        ``last_phases``, seconds by stage: ``prep`` (row plan, ranks),
+        ``enqueue`` (stage 1), ``collect`` with one ``collect_L{L}`` a
+        bucket (stage 2), ``retry`` (stage 3 and the host rows).  A call
+        without device planes leaves ``last_phases`` as it was."""
+        t0 = time.perf_counter()
         n = len(seqs)
         counts = np.zeros(n, dtype=np.int32)
         had = np.zeros(n, dtype=bool)
+        self.last_anchors_valid = 0
+        self.last_anchor_slots = 0
         if filter_ratio is not None:
             if self.device_ok and not self.supports_device_filter():
                 raise ValueError("-F cannot run on the device for this index (supports_device_filter)")
@@ -589,19 +603,27 @@ class DeviceOverlapEngine:
             if pool is not None
             else None
         )
+        phases = {"prep": 0.0, "enqueue": 0.0, "collect": 0.0, "retry": 0.0}
         try:
             qdualrank, qselfrid = self.query_ranks(names)
+            t1 = time.perf_counter()
+            phases["prep"] = t1 - t0
             # stage 1: enqueue every super-batch (the device runs behind)
             inflight = []
             for L in self.length_buckets:
                 if bucket_rows.get(L):
                     inflight.extend(self._dispatch(L, bucket_rows[L], seqs, qdualrank, qselfrid, **mode))
+            t0 = t_bucket = time.perf_counter()
+            phases["enqueue"] = t0 - t1
             # stage 2: collect and triage
             retry = []
             for nb, A, codes, lengths, ids, packed, pairs in inflight:
                 arr = packed.cpu().numpy().astype(np.int64)
                 bcounts, n_anchors, max_run, mcount = (arr[..., j][:nb] for j in range(4))
                 live = ids[:nb] >= 0
+                SUP, B, L = codes.shape
+                self.last_anchors_valid += int(np.minimum(n_anchors, A)[live].sum())
+                self.last_anchor_slots += SUP * B * A
                 needs = self.triage_flags(
                     live, n_anchors, A, max_run, mcount, minimizer_cap(codes.shape[2]),
                     codes[:nb], lengths[:nb],
@@ -626,6 +648,11 @@ class DeviceOverlapEngine:
                 if collect_pairs is not None:
                     for qid, pr in zip(ok_ids, pair_ranks[ok]):
                         collect_pairs[qid] = self._ranks_to_rids(pr[pr >= 0])
+                now = time.perf_counter()
+                phases[f"collect_L{L}"] = phases.get(f"collect_L{L}", 0.0) + (now - t_bucket)
+                t_bucket = now
+            t1 = time.perf_counter()
+            phases["collect"] = t1 - t0
             # stage 3: exact host recompute of the flagged rows
             take_host(retry, host_fn([(names[i], seqs[i]) for i in retry]))
             fallback = len(retry)
@@ -641,6 +668,7 @@ class DeviceOverlapEngine:
                     self.fallback_triggers[
                         "long_read" if len(seqs[i]) > max_bucket else "sparse_bucket"
                     ] += 1
+            phases["retry"] = time.perf_counter() - t1
         finally:
             if pool is not None:
                 pool.shutdown()
@@ -649,4 +677,6 @@ class DeviceOverlapEngine:
                 "device path: %d/%d rows fell back to host (%s)", fallback, n,
                 dict(self.fallback_triggers),
             )
+        logger.debug("device path phases: %s", {k: round(v, 2) for k, v in phases.items()})
+        self.last_phases = phases
         return BatchCounts(counts, had, fallback)

@@ -66,6 +66,87 @@ def calc_mid_occ(counts_per_distinct: np.ndarray, params: OverlapParams) -> int:
     return mid_occ
 
 
+# the device sketch's blocking, the reference's (ops/index.py:86-87):
+# super-batches of SUPER batches of B reads padded to L, M minimizer slots
+SKETCH_SUPER, SKETCH_B, SKETCH_L = 8, 128, 4096
+SKETCH_M = SKETCH_L // 2
+
+
+def _host_sketch(codes: np.ndarray, params: OverlapParams):
+    """One read's exact host sketch as index arrays ``(hash, pos, strand)``."""
+    mz = sketch_read(codes, params.k, params.w, params.hpc)
+    return (mz.key >> np.uint64(8)).astype(np.uint64), mz.pos.astype(np.int32), mz.strand.astype(np.int8)
+
+
+def _sketch_reads_device(seqs, params: OverlapParams, lengths, torch_device=None):
+    """Sketch many reads with the batched torch sketch (``sketch_core``)
+    on ``torch_device``, the reference's ``_sketch_reads_device``
+    (ops/index.py:69-148).
+
+    Returns per-read ``(hash, pos, strand)`` arrays equal to the host
+    sketch's: rows longer than ``SKETCH_L``, rows with more than
+    ``SKETCH_M`` minimizers and rows that :func:`needs_scalar_sketch`
+    flags (ambiguous bases) are sketched on the host by
+    :func:`sketch_read`, the reference's exactness rule.  The 32-bit
+    sketch cannot take the PacBio/HPC parameters: those raise
+    ``ValueError``, where the reference stops on an assertion.
+    ``torch_device`` defaults to ``cuda:0`` and raises without CUDA.
+    """
+    import logging
+
+    import torch
+
+    from .encode import make_batches
+    from .sketch import needs_scalar_sketch
+    from .sketch_torch import sketch_core
+
+    if 2 * params.k > 32 or params.hpc:
+        raise ValueError(
+            f"the device sketch takes 2k <= 32 without HPC (k={params.k}, hpc={params.hpc})"
+        )
+    if torch_device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the device sketch needs CUDA: no CUDA device is available")
+        torch_device = torch.device("cuda", 0)
+    torch_device = torch.device(torch_device)
+    per_read = [None] * len(seqs)
+    short_rows = [i for i, s in enumerate(seqs) if len(s) <= SKETCH_L]
+    host_rows = [i for i, s in enumerate(seqs) if len(s) > SKETCH_L]
+    for i in host_rows:
+        per_read[i] = _host_sketch(encode_seq(seqs[i]), params)
+    batches = make_batches(
+        [seqs[i] for i in short_rows], ids=short_rows, batch_size=SKETCH_B, pad_to=SKETCH_L,
+        pow2_lengths=False, pad_batch=True,
+    )
+    for off in range(0, len(batches), SKETCH_SUPER):
+        group = batches[off : off + SKETCH_SUPER]
+        codes = np.concatenate([b.codes for b in group])
+        lens = np.concatenate([b.lengths for b in group])
+        ids = np.concatenate([b.ids for b in group])
+        mhash, mpos, mstrand, mcount = (
+            t.cpu().numpy()
+            for t in sketch_core(
+                torch.from_numpy(codes).to(torch_device), torch.from_numpy(lens).to(torch_device),
+                k=params.k, w=params.w, max_minimizers=SKETCH_M,
+            )
+        )
+        for row in np.flatnonzero(ids >= 0):
+            rid, row_codes, cnt = ids[row], codes[row, : lens[row]], mcount[row]
+            if cnt > SKETCH_M or needs_scalar_sketch(row_codes, params.k, params.w, False):
+                per_read[rid] = _host_sketch(row_codes, params)
+                host_rows.append(rid)
+            else:
+                per_read[rid] = (
+                    mhash[row, :cnt].astype(np.uint64),
+                    mpos[row, :cnt].astype(np.int32),
+                    mstrand[row, :cnt].astype(np.int8),
+                )
+    logging.getLogger("lrge").debug(
+        "device sketch on %s: %d of %d rows sketched on the host", torch_device, len(host_rows), len(seqs)
+    )
+    return per_read
+
+
 _SKETCH_PARAMS = None
 
 
@@ -75,14 +156,7 @@ def _sketch_worker_init(params):
 
 
 def _sketch_worker(seq: bytes):
-    mz = sketch_read(
-        encode_seq(seq), _SKETCH_PARAMS.k, _SKETCH_PARAMS.w, _SKETCH_PARAMS.hpc
-    )
-    return (
-        (mz.key >> np.uint64(8)).astype(np.uint64),
-        mz.pos.astype(np.int32),
-        mz.strand.astype(np.int8),
-    )
+    return _host_sketch(encode_seq(seq), _SKETCH_PARAMS)
 
 
 def _sketch_reads_parallel(seqs, params, workers: int = None):
@@ -127,14 +201,16 @@ def build_index(
     params: OverlapParams,
     device: str = "auto",
     threads: int = 8,
+    torch_device=None,
 ) -> TargetIndex:
     """Sketch all target reads and build the sorted postings index.
 
     ``device="auto"`` sketches with the native sketcher, or across
-    forked workers for large read sets without it; any other value
+    forked workers for large read sets without it; ``"device"`` with
+    the torch sketch on ``torch_device`` (default ``cuda:0``; raises
+    without CUDA; :func:`_sketch_reads_device`); any other value
     sketches serially.  All paths produce identical indexes (quirk rows
-    use the exact scalar oracle everywhere).  The reference's
-    ``"device"`` branch (a JAX sketch of the targets) has no copy here.
+    use the exact scalar oracle everywhere).
     """
     all_keys = []
     all_rid = []
@@ -142,7 +218,9 @@ def build_index(
     all_strand = []
     lengths = np.array([len(s) for s in seqs], dtype=np.int32)
     per_read = None
-    if device == "auto":
+    if device == "device":
+        per_read = _sketch_reads_device(seqs, params, lengths, torch_device)
+    elif device == "auto":
         from .sketch import sketch_seqs_native
 
         res = sketch_seqs_native(seqs, params.k, params.w, params.hpc, threads)

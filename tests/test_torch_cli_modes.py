@@ -4,10 +4,16 @@
 host`` prints for ``-n``, ``--use-min-ref``, ``-F``, ``-n -F`` and
 ``--use-min-ref -F``, and with ``-P pb`` for two-set, ``-n``,
 ``--use-min-ref`` and ``-F`` (which the device engine routes to the
-host, as the reference does), on the verify corpus, both on the port's
-host engine and on its device path (here on the CPU); each device run
-is a fresh interpreter that loads no ``jax`` and no ``lrge_tpu`` module.
+host, as the reference does), and for the output flags ``-8``, ``-f``,
+``--q1``/``--q3`` and ``-F --max-overhang-ratio``, on the verify corpus,
+both on the port's host engine and on its device path (here on the
+CPU); each device run is a fresh interpreter that loads no ``jax`` and
+no ``lrge_tpu`` module.  Two ``-8`` subsamples meet infinite estimates
+at the median: one prints ``NaN`` (the median interpolates with weight
+0 onto an infinite estimate: inf * 0), one ``inf``.
 """
+
+import logging
 
 import os
 import subprocess
@@ -35,7 +41,17 @@ MODES = {
     "pacbio_ava": ["-n", "200", *SEED, "-P", "pb"],
     "pacbio_inverse": [*ARGS, "--use-min-ref", "-P", "pb"],
     "pacbio_filter": [*ARGS, "-P", "pb", "-F"],
+    "with_infinity": [*ARGS, "-8"],
+    "precise": [*ARGS, "-f"],
+    "quantiles": [*ARGS, "--q1", "0.1", "--q3", "0.9"],
+    "overhang_ratio": [*ARGS, "-F", "--max-overhang-ratio", "0.3"],
+    # subsamples whose median meets infinite estimates (seeds scanned
+    # against the reference)
+    "infinite_nan": ["-T", "10", "-Q", "5", "-s", "1", "-8"],
+    "infinite_inf": ["-T", "3", "-Q", "4", "-s", "1", "-8"],
 }
+# what the reference prints on the infinite subsamples
+INFINITE = {"infinite_nan": "NaN\n", "infinite_inf": "inf\n"}
 
 
 @pytest.fixture(scope="module")
@@ -66,6 +82,24 @@ def test_cli_mode_equals_reference_host(verify_reads, port_device_runs, capsys, 
     assert port_device_runs[mode][0] + "\n" == want
     assert cli.main([*args, "--engine", "host", "-qqq"]) == 0
     assert capsys.readouterr().out == want
+    assert INFINITE.get(mode, want) == want
+
+
+def test_quantile_flags_set_the_reference_iqr(verify_reads, caplog, capsys):
+    """``--q1``/``--q3`` move only the logged IQR: the port logs the
+    reference's estimate line."""
+    from lrge_tpu import cli as ref_cli
+
+    args = [str(verify_reads), *MODES["quantiles"], "--engine", "host"]
+    lines = []
+    for main in (ref_cli.main, cli.main):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="lrge"):
+            assert main(args) == 0
+        lines.append([r.getMessage() for r in caplog.records if r.getMessage().startswith("Estimated genome size")])
+    capsys.readouterr()
+    assert len(lines[0]) == 1 and "(IQR: " in lines[0][0]
+    assert lines[1] == lines[0]
 
 
 def test_port_modes_never_load_jax(port_device_runs):

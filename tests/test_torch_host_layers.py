@@ -1,6 +1,7 @@
 """The PyTorch port's own copies of the reference's host layers.
 
-* No module of ``lrge_tpu_torch`` (``parallel/`` included) and no line
+* No module of ``lrge_tpu_torch`` (``parallel/`` and the library
+  namespace ``__init__``/``twoset``/``ava`` included) and no line
   of ``chip_smoke.py`` (its rank launcher included) or
   ``chip_profile.py`` imports ``lrge_tpu`` or ``jax`` (an AST scan, lazy
   imports included).
@@ -72,6 +73,9 @@ def _port_files() -> list:
 def test_port_never_imports_reference():
     files = _port_files()
     assert len(files) > 20
+    # the library namespace and the device target sketch among them
+    surface = {REPO / "lrge_tpu_torch" / f for f in ("__init__.py", "twoset.py", "ava.py", "ops/index.py")}
+    assert surface <= set(files)
     assert [h for f in files for h in _reference_imports(f)] == []
     # the scan does see an import of the reference
     probe = REPO / "tests" / "test_torch_host_layers.py"

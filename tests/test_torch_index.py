@@ -133,3 +133,77 @@ def test_numpy_builders_match(index):
     np.testing.assert_array_equal(port._rank_order(index), ref._rank_order(index))
     for L in (128, 2048, 4096, 32768):
         assert port.minimizer_cap(L) == ref.minimizer_cap(L)
+
+
+# -- the device sketch of the targets (build_index(device="device")) --------
+
+from lrge_tpu.platform import AVA_ONT as REF_AVA_ONT  # noqa: E402
+from lrge_tpu.platform import AVA_PB as REF_AVA_PB  # noqa: E402
+from lrge_tpu_torch.ops import index as port_index  # noqa: E402
+from lrge_tpu_torch.platform import AVA_ONT, AVA_PB  # noqa: E402
+
+INDEX_FIELDS = ("keys", "rid", "pos", "strand", "lengths", "name_rank")
+
+
+def sketch_corpus(n=40, seed=4242):
+    """Reads of 100-6,000 bp (some over the sketch's L = 4,096), every
+    fifth with a few ``N``s."""
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for i in range(n):
+        s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(rng.integers(100, 6000)))].copy()
+        if i % 5 == 0:
+            s[rng.integers(0, len(s), 3)] = ord("N")
+        seqs.append(s.tobytes())
+    assert any(len(s) > port_index.SKETCH_L for s in seqs) and any(b"N" in s for s in seqs)
+    return seqs, [b"r%d" % i for i in range(n)]
+
+
+def assert_index_equal(got, want):
+    for f in INDEX_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    assert got.mid_occ == want.mid_occ
+
+
+def test_device_sketch_index_equals_host_and_reference():
+    seqs, names = sketch_corpus()
+    got = port_index.build_index(seqs, names, AVA_ONT, device="device", torch_device=CPU)
+    assert_index_equal(got, port_index.build_index(seqs, names, AVA_ONT, device="host"))
+    assert_index_equal(got, build_index(seqs, names, REF_AVA_ONT, device="device"))
+
+
+def test_device_sketch_exact_past_the_reference_cap():
+    """A 4,000 bp AC repeat has 1,992 minimizers: past the reference's
+    sketch capacity (``minimizer_cap(4096)`` = 1,664) but under its
+    recompute threshold (M = 2,048), so the reference's device index keeps
+    only 1,664 of them (ROADMAP Queue 3); the port's sketch holds M slots
+    and its index equals the host's."""
+    rng = np.random.default_rng(5)
+    seqs = [b"AC" * 2000, np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 3000)].tobytes()]
+    names = [b"rep", b"rnd"]
+    host = port_index.build_index(seqs, names, AVA_ONT, device="host")
+    assert int((host.rid == 0).sum()) == 1992
+    assert_index_equal(port_index.build_index(seqs, names, AVA_ONT, device="device", torch_device=CPU), host)
+    ref_dev = build_index(seqs, names, REF_AVA_ONT, device="device")
+    assert int((ref_dev.rid == 0).sum()) == ref.minimizer_cap(4096) == 1664
+
+
+def test_device_sketch_refuses_pacbio_and_needs_cuda(monkeypatch):
+    """Both packages refuse the PacBio/HPC preset (the reference on its
+    32-bit assertion), the port before touching a device; with no CUDA
+    and no ``torch_device`` the port raises instead of using the CPU."""
+    seqs, names = sketch_corpus(6)
+    with pytest.raises(AssertionError, match="2k <= 32"):
+        build_index(seqs, names, REF_AVA_PB, device="device")
+    touched = []
+    monkeypatch.setattr(torch.Tensor, "to", lambda *a, **k: touched.append(a) or a[0])
+    with pytest.raises(ValueError, match="2k <= 32 without HPC"):
+        port_index.build_index(seqs, names, AVA_PB, device="device", torch_device=CPU)
+    with pytest.raises(ValueError, match="without HPC"):
+        port_index.build_index(seqs, names, dataclasses.replace(AVA_ONT, hpc=True), device="device",
+                               torch_device=CPU)
+    assert touched == []
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        port_index.build_index(seqs, names, AVA_ONT, device="device")

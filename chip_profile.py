@@ -11,7 +11,12 @@ warm ``count_batch`` passes over the 5,000 queries with the host clock,
 then runs one more pass under ``torch.profiler`` and prints the wall of
 that pass, the device time by kernel (the top 15, and the chain DP's
 own kernels), the device's idle share (1 - summed kernel time / wall)
-and the chain DP's launches in the pass.  Under ``-P pb`` it also times
+and the chain DP's launches in the pass.  Each super-batch is one
+replay of its bucket's CUDA graph (``lrge_tpu_torch/ops/program.py``):
+the script also times each bucket's replay with CUDA events (mean of
+20) and prints the replays' device time over the pass; if the profiler
+attributes no kernel inside the replays it says so, and the idle share
+comes from those replay times instead.  Under ``-P pb`` it also times
 the host sketch of the same queries (``_pb_planes``, which the pass
 runs per super-batch).  On a multi-sub index it also times, on the
 first super-batch of the fullest bucket, the shared lookup and each
@@ -84,6 +89,24 @@ def sub_costs(engine, names, seqs) -> None:
         print(f"[profile] sub {s} map: {t:.3f} ms, rows over A {over} of {int(live.sum())}", flush=True)
 
 
+def replay_ms(engine, seqs) -> float:
+    """Device time (ms) of one pass's graph replays: each bucket's replay
+    timed with CUDA events (mean of 20), times its super-batches."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    total = 0.0
+    for L, rows in bucket_rows.items():
+        if not rows:
+            continue
+        A, SUP = engine.bucket_shape(L)
+        prog = engine.program(L, A, SUP)
+        n = -(-len(rows) // (engine.batch_size * SUP))
+        ms = cs.cuda_ms(prog.graph.replay)
+        total += n * ms
+        print(f"[profile] bucket L={L}: {n} super-batches x replay {ms:.4f} ms (capture {prog.capture_s:.3f} s)",
+              flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("-P", "--platform", choices=("ont", "pb"), default="ont",
@@ -131,7 +154,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             engine.count_batch(names, seqs)
             t = time.perf_counter() - t0
-            print(f"[profile] warm pass {i}: {t:.4f} s, {len(seqs) / t:.1f} q/s", flush=True)
+            phases = {k: round(v, 6) for k, v in engine.last_phases.items()}
+            print(f"[profile] warm pass {i}: {t:.4f} s, {len(seqs) / t:.1f} q/s, last_phases {phases}", flush=True)
         if engine.pb_mode:
             t0 = time.perf_counter()
             engine._pb_planes(seqs, minimizer_cap(max(engine.length_buckets)))
@@ -146,13 +170,20 @@ def main(argv=None) -> int:
             engine.count_batch(names, seqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    launches = getattr(ck.chain_dp_skip, counter)
+        launches = getattr(ck.chain_dp_skip, counter)
+        replays = replay_ms(engine, seqs)
     # device-side events only (the kernels), so no time counts twice
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     kernels.sort(key=device_us, reverse=True)
     busy = sum(device_us(e) for e in kernels) / 1e3
+    attributed = any("chain_dp_kernel" in e.key for e in kernels)
+    if launches and not attributed:
+        print("[profile] torch.profiler attributed no kernel inside the graph replays: the idle share below is "
+              "from the replays' CUDA-event times", flush=True)
+        busy = replays
     print(f"[profile] profiled pass: wall {wall * 1e3:.1f} ms, device kernels {busy:.1f} ms, "
-          f"idle {100 * (1 - busy / (wall * 1e3)):.1f}%, chain kernel launches {launches} ({gpu_line})")
+          f"idle {100 * (1 - busy / (wall * 1e3)):.1f}%, chain kernel launches {launches}; graph replays by "
+          f"CUDA events {replays:.1f} ms ({gpu_line})")
     # the top 15, and the chain DP's own kernels wherever they rank
     for i, e in enumerate(kernels):
         if i < 15 or "chain_dp_kernel" in e.key or "find_runs_kernel" in e.key:

@@ -79,11 +79,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    last_anchor_slots``, the slots every super-batch's ``SUP x B x A``);
    and ``build_index(device="device")`` over phase 4's 10,000 targets
    must equal the native sketch's index (both walls printed, and the
-   rows the device sketch left to the host).
+   rows the device sketch left to the host);
+12. the super-batch programs (``lrge_tpu_torch/ops/program.py``: one
+   CUDA graph a bucket and mode, which every single-device pass above
+   replays), on fresh engines over the indexes of phases 4, 8 and 9,
+   one at a time: (a) for ONT plain, pairs and ``-F`` on phase 4's index,
+   phase 9's multi-sub index and phase 8's PacBio index, the first two
+   super-batches of the fullest bucket replayed one after the other,
+   then each output held bit for bit to the eager function on the same
+   inputs; (b) phase 4's stage 1 (every bucket's dispatch) under
+   ``torch.cuda.set_sync_debug_mode("error")``: nothing may block the
+   host; (c) each program's capture seconds, a replay's ms against the
+   eager call's (CUDA events, mean of 20), the aten ops an eager call
+   dispatches, ``super_batches`` host seconds alone, and phase 4's warm
+   pass's ``last_phases``, q/s and peak MiB.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
-too (counts reset just before it, read just after).  Each phase prints
+too (counts reset just before it, read just after).  A single-device
+pass must launch its variant ``n_sub`` times a super-batch (its graph
+replays), plus the eager run before each capture of a program first
+used inside the pass; a run prints that split.  Each phase prints
 its wall time.  The line before the last is the kernels' JSON record
 (the main variant's also carries phase 9's case and CLI launches under
 ``multi_sub_path``, phase 11's library runs' under ``library_path``, and
@@ -376,12 +392,32 @@ LOGGED = "Using device overlap engine on cuda"
 
 
 def reset_counts(ck):
+    from lrge_tpu_torch.ops.program import SuperBatchProgram
+
     for attr in COUNTERS.values():
         setattr(ck.chain_dp_skip, attr, 0)
+    SuperBatchProgram.captures = 0
+    SuperBatchProgram.warmup_launches = dict.fromkeys(COUNTERS.values(), 0)
 
 
 def read_counts(ck) -> dict:
     return {v: getattr(ck.chain_dp_skip, attr) for v, attr in COUNTERS.items()}
+
+
+def warmup_counts() -> tuple[int, dict]:
+    """Programs captured since the counts were reset, and the launches by
+    variant of the eager run before each capture (in :func:`read_counts`
+    too: they ran on the card)."""
+    from lrge_tpu_torch.ops.program import SuperBatchProgram
+
+    warm = SuperBatchProgram.warmup_launches
+    return SuperBatchProgram.captures, {v: warm[attr] for v, attr in COUNTERS.items()}
+
+
+def launch_split(counts) -> str:
+    captures, warm = warmup_counts()
+    replays = {v: counts[v] - warm[v] for v in counts}
+    return f"replays {replays} + eager runs before {captures} captures {warm}"
 
 
 def run_cli(ck, tag, args, out, gpu_line, *, needle="", variant="main", host_equal=False):
@@ -414,8 +450,8 @@ def run_cli(ck, tag, args, out, gpu_line, *, needle="", variant="main", host_equ
     if counts[variant] <= 0:
         fail(f"[{tag}] the path never launched the chain kernel's {variant} variant")
     est = float(out.read_text())
-    print(f"[{tag}] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches by variant {counts} "
-          f"({gpu_line})", flush=True)
+    print(f"[{tag}] cli: estimate {est:.0f} bp, wall {wall:.1f} s, kernel launches by variant {counts} = "
+          f"{launch_split(counts)} ({gpu_line})", flush=True)
     if not np.isfinite(est):
         fail(f"[{tag}] estimate {est} is not finite")
     if host_equal:
@@ -436,7 +472,7 @@ def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     """One warm ``count_batch`` pass, timed, with fresh fallback tallies;
     it must launch its path's kernel variant (extent under ``-F``, span
     under PacBio; every count set to 0 just before the pass, read just
-    after).  Returns ``(result, pair dict or None, report)``."""
+    after).  Returns ``(result, pair dict or None, report, {"qps", "peak_mib"})``."""
     from lrge_tpu_torch.ops import chain_kernel as ck
 
     variant = "ext" if kw.get("filter_ratio") is not None else "span" if engine.pb_mode else "main"
@@ -451,11 +487,20 @@ def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     counts = read_counts(ck)
     if counts[variant] <= 0:
         fail(f"[{tag}] the pass never launched the chain kernel's {variant} variant")
+    if engine.sharded is None:
+        # one replay a super-batch, n_sub launches each, beside the eager
+        # runs before any capture inside the pass
+        want = engine.gdev.n_sub * super_batch_count(engine, seqs)
+        if counts[variant] - warmup_counts()[1][variant] != want:
+            fail(f"[{tag}] {counts} launches: {launch_split(counts)}, not n_sub x super-batches = {want}")
     peak = torch.cuda.max_memory_allocated()
+    # the graphs' private pools are reserved, not allocated, between replays
+    reserved = torch.cuda.max_memory_reserved()
     report = (f"{len(seqs) / t:.1f} q/s ({t:.3f} s for {len(seqs)} rows), fallback_rows "
               f"{res.fallback_rows}, fallback_triggers {dict(engine.fallback_triggers)}, peak device "
-              f"memory {peak / 2**20:.1f} MiB, kernel launches by variant {counts}")
-    return res, collected, report
+              f"memory {peak / 2**20:.1f} MiB (reserved {reserved / 2**20:.1f} MiB), kernel launches by "
+              f"variant {counts} = {launch_split(counts)}")
+    return res, collected, report, dict(qps=len(seqs) / t, peak_mib=peak / 2**20, reserved_mib=reserved / 2**20)
 
 
 def check_sample(tag, engine, names, seqs, res, pairs, filter_ratio=None, filter_mode="internal"):
@@ -516,9 +561,9 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     main_path_case(ck, engine, names, seqs, recs)
     main_path_case(ck, engine, names, seqs, recs_ext, extents=True)
     engine.warmup([len(s) for s in seqs])
-    res, _, report = timed_pass("main", engine, names, seqs)
+    res, _, report, stats = timed_pass("main", engine, names, seqs)
     record = dict(valid=engine.last_anchors_valid, slots=engine.last_anchor_slots,
-                  phases=dict(engine.last_phases), want_slots=slot_count(engine, seqs))
+                  phases=dict(engine.last_phases), want_slots=slot_count(engine, seqs), **stats)
     check_sample("main", engine, names, seqs, res, None)
     print(f"[main] engine: {report}, HAVE_NATIVE {device_engine.native is not None} ({gpu_line})", flush=True)
     single = dict(index=engine.index, names=names, seqs=seqs, res=res, record=record)
@@ -529,7 +574,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
         host_equal=True,
     )
     engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
-    res, _, report = timed_pass("filter", engine, names, seqs, filter_ratio=0.2)
+    res, _, report, _ = timed_pass("filter", engine, names, seqs, filter_ratio=0.2)
     check_sample("filter", engine, names, seqs, res, None, filter_ratio=0.2)
     print(f"[filter] engine: {report} ({gpu_line})", flush=True)
 
@@ -541,12 +586,12 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     tnames = [n for n, _ in targets]
     tseqs = [s for _, s in targets]
     inv.warmup([len(s) for s in tseqs], want_pairs=True)
-    res, pairs, report = timed_pass("inverse", inv, tnames, tseqs, pairs=True)
+    res, pairs, report, _ = timed_pass("inverse", inv, tnames, tseqs, pairs=True)
     check_sample("inverse", inv, tnames, tseqs, res, pairs)
     print(f"[inverse] engine: {report} ({gpu_line})", flush=True)
     mode = dict(filter_ratio=0.2, filter_mode="overhang")
     inv.warmup([len(s) for s in tseqs], want_pairs=True, **mode)
-    res, pairs, report = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
+    res, pairs, report, _ = timed_pass("inverse -F", inv, tnames, tseqs, pairs=True, **mode)
     check_sample("inverse -F", inv, tnames, tseqs, res, pairs, **mode)
     print(f"[inverse -F] engine: {report} ({gpu_line})", flush=True)
     return launches["main"], ext_launches["ext"], single
@@ -568,14 +613,14 @@ def ava_path(ck, dev, gpu_line, fq):
     engine = device_engine_on_card(strat._build_engine(reads).index, dev)
     lens = [len(s) for s in seqs]
     engine.warmup(lens, want_pairs=True)
-    res, pairs, report = timed_pass("ava", engine, names, seqs, pairs=True)
+    res, pairs, report, _ = timed_pass("ava", engine, names, seqs, pairs=True)
     check_sample("ava", engine, names, seqs, res, pairs)
     print(f"[ava] engine: {report} ({gpu_line})", flush=True)
     # the -F host recompute is map_read in Python over every overflow
     # row (~70% of them): the pass streams the first AVA_FILTER_READS
     names, seqs = names[:AVA_FILTER_READS], seqs[:AVA_FILTER_READS]
     engine.warmup(lens[:AVA_FILTER_READS], filter_ratio=0.2, want_pairs=True)
-    res, pairs, report = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
+    res, pairs, report, _ = timed_pass("ava -F", engine, names, seqs, pairs=True, filter_ratio=0.2)
     check_sample("ava -F", engine, names, seqs, res, pairs, filter_ratio=0.2)
     print(f"[ava -F] engine, first {len(seqs)} reads: {report} ({gpu_line})", flush=True)
     return reads
@@ -609,7 +654,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     seqs = [s for _, s in queries]
     main_path_case(ck, engine, names, seqs, recs_span, spans=True)
     engine.warmup([len(s) for s in seqs])
-    res, _, report = timed_pass("pacbio", engine, names, seqs)
+    res, _, report, _ = timed_pass("pacbio", engine, names, seqs)
     check_sample("pacbio", engine, names, seqs, res, None)
     print(f"[pacbio] engine: {report} ({gpu_line})", flush=True)
     single = dict(index=engine.index, names=names, seqs=seqs, res=res)
@@ -619,7 +664,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     tnames = [n for n, _ in targets]
     tseqs = [s for _, s in targets]
     inv.warmup([len(s) for s in tseqs], want_pairs=True)
-    res, pairs, report = timed_pass("pacbio inverse", inv, tnames, tseqs, pairs=True)
+    res, pairs, report, _ = timed_pass("pacbio inverse", inv, tnames, tseqs, pairs=True)
     check_sample("pacbio inverse", inv, tnames, tseqs, res, pairs)
     print(f"[pacbio inverse] engine: {report} ({gpu_line})", flush=True)
 
@@ -630,7 +675,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     ava = device_engine_on_card(build_engine_no_fork(ava_reads, preset_for(Platform.PACBIO, dual=False)).index, dev)
     print(f"[pacbio ava] index and planes of {len(seqs)} reads: {time.perf_counter() - t0:.1f} s", flush=True)
     ava.warmup([len(s) for s in seqs], want_pairs=True)
-    res, pairs, report = timed_pass("pacbio ava", ava, names, seqs, pairs=True)
+    res, pairs, report, _ = timed_pass("pacbio ava", ava, names, seqs, pairs=True)
     check_sample("pacbio ava", ava, names, seqs, res, pairs)
     print(f"[pacbio ava] engine: {report} ({gpu_line})", flush=True)
     return launches["span"], single
@@ -694,7 +739,8 @@ def accurate_paths(ck, dev, gpu_line, fq, recs):
     estimate of the host counts against the CLI's
     (:func:`check_all_and_estimate`), under ``-P pb`` 300 sampled rows.
     The ONT index also gives phase 3 its anchors (into ``recs``).
-    Returns the CLI's launches of the main variant."""
+    Returns the CLI's launches of the main variant and the ONT index
+    with its queries, for phase 12."""
     from lrge_tpu_torch.platform import Platform
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
@@ -724,18 +770,19 @@ def accurate_paths(ck, dev, gpu_line, fq, recs):
         if variant == "main":
             main_path_case(ck, engine, names, seqs, recs, key="accurate_path")
         engine.warmup([len(s) for s in seqs])
-        res, _, report = timed_pass(tag, engine, names, seqs)
-        n = read_counts(ck)[variant]
+        res, _, report, _ = timed_pass(tag, engine, names, seqs)
+        n = read_counts(ck)[variant] - warmup_counts()[1][variant]
         sb = super_batch_count(engine, seqs)
         print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
         if n != n_sub * sb:
-            fail(f"[{tag}] {n} {variant} launches, not n_sub {n_sub} x {sb} super-batches")
-        print(f"[{tag}] {variant} launches {n} = n_sub {n_sub} x {sb} super-batches", flush=True)
+            fail(f"[{tag}] {n} {variant} replay launches, not n_sub {n_sub} x {sb} super-batches")
+        print(f"[{tag}] {variant} replay launches {n} = n_sub {n_sub} x {sb} super-batches", flush=True)
         if variant == "main":
             check_all_and_estimate(tag, engine, names, seqs, res, avg_target_len, cli_out)
+            multi = dict(index=index, names=names, seqs=seqs)
         else:
             check_sample(tag, engine, names, seqs, res, None)
-    return launches["main"]
+    return launches["main"], multi
 
 
 def sharded_engine_on_card(tag, index, dev, gpu_line):
@@ -784,7 +831,7 @@ def sharded_pass(ck, tag, engine, names, seqs, gpu_line, want, pairs=False, want
     ``want``, 300 rows to the host.  Returns the launches."""
     variant = "span" if engine.pb_mode else "main"
     engine.warmup([len(s) for s in seqs], want_pairs=pairs)
-    res, collected, report = timed_pass(tag, engine, names, seqs, pairs=pairs)
+    res, collected, report, _ = timed_pass(tag, engine, names, seqs, pairs=pairs)
     n, sb = read_counts(ck)[variant], super_batch_count(engine, seqs)
     print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
     if n != SHARDS * sb:
@@ -886,7 +933,7 @@ def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
     index = build_engine_no_fork(ava_reads, preset_for(Platform.NANOPORE, dual=False)).index
     one = device_engine_on_card(index, dev)
     one.warmup([len(s) for s in seqs], want_pairs=True)
-    want, want_pairs, report = timed_pass("sharded ava, one device", one, names, seqs, pairs=True)
+    want, want_pairs, report, _ = timed_pass("sharded ava, one device", one, names, seqs, pairs=True)
     print(f"[sharded ava] single-device engine, first {len(seqs)} reads: {report} ({gpu_line})", flush=True)
     engine = sharded_engine_on_card("sharded ava", index, dev, gpu_line)
     launches["main"] += sharded_pass(ck, "sharded ava", engine, names, seqs, gpu_line, want, True, want_pairs)
@@ -1013,6 +1060,128 @@ def library_paths(ck, dev, gpu_line, fq, fq_ava, cli_launches, record):
     return launches
 
 
+def aten_ops(fn) -> int:
+    """The aten ops that ``fn()`` dispatches (the chain DP's ctypes
+    launches are not among them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def replay_case(tag, engine, names, seqs, mode, dev, gpu_line):
+    """Phase 12 (a), one program: the first two super-batches of the
+    fullest bucket replayed one after the other, then each output held
+    bit for bit to the eager function on the same inputs; prints capture
+    seconds, replay against eager ms and the aten ops of an eager call."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
+    dual, selfr = engine.query_ranks(names)
+    runs = []
+    for _, A, codes, lengths, ids, d, sr in engine.super_batches(L, bucket_rows[L], seqs, dual, selfr):
+        prog = engine.program(L, A, ids.shape[0], **mode)
+        arrays = engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)
+        runs.append((arrays, prog.run(*arrays)))
+        if len(runs) == 2:
+            break
+    if len(runs) < 2 or prog.graph is None:
+        fail(f"[graphs] {tag}: want two replayed super-batches of bucket {L}, got {len(runs)}")
+    for i, (arrays, got) in enumerate(runs):
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        want = prog.fn(*inputs)
+        for what, g, w in zip(("plane", "pair plane"), got, want):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                fail(f"[graphs] {tag}: super-batch {i}'s replayed {what} != the eager function's")
+    if torch.equal(runs[0][1][0], runs[1][1][0]):
+        fail(f"[graphs] {tag}: the two super-batches gave equal planes")
+    # the static inputs hold the second super-batch, as do ``inputs``
+    replay_ms = cuda_ms(prog.graph.replay)
+    eager_ms = cuda_ms(lambda: prog.fn(*inputs))
+    pairs = " and pair planes" if mode.get("want_pairs") else ""
+    print(f"[graphs] {tag}: bucket L={L}, {prog.key.SUP} x {prog.key.B} rows, A={prog.key.A}, n_sub "
+          f"{engine.gdev.n_sub}: 2 super-batches replayed, planes{pairs} bit-equal to the eager function; "
+          f"capture {prog.capture_s:.3f} s, replay {replay_ms:.4f} ms, eager {eager_ms:.4f} ms, "
+          f"{aten_ops(lambda: prog.fn(*inputs))} aten ops an eager call ({gpu_line})", flush=True)
+
+
+def print_captures(tag, engine):
+    caps = {f"{k.branch} L={k.L} pairs={k.want_pairs} -F={k.filter_mode}": round(p.capture_s, 3)
+            for k, p in engine.programs.items()}
+    print(f"[graphs] {tag} engine: {len(caps)} programs, capture s {json.dumps(caps)}", flush=True)
+
+
+def graph_paths(dev, gpu_line, ont, pb, multi):
+    """Phase 12, the super-batch programs on the card, over fresh engines
+    on the host indexes of phases 4 (``ont``), 8 (``pb``) and 9
+    (``multi``, the multi-sub ONT index), one at a time: (a) five programs
+    (:func:`replay_case`: ONT plain, pairs and ``-F`` on phase 4's index,
+    multi-sub, PacBio); (b) phase 4's stage 1, after its warm-up, under
+    ``torch.cuda.set_sync_debug_mode("error")``; (c) ``super_batches``
+    host seconds, each program's capture seconds and phase 4's warm pass
+    record."""
+    t0 = time.perf_counter()
+    engine = device_engine_on_card(ont["index"], dev)
+    names, seqs = ont["names"], ont["seqs"]
+    t_planes = time.perf_counter() - t0
+    engine.warmup([len(s) for s in seqs])
+    print(f"[graphs] phase 4's index: planes {t_planes:.2f} s, warm-up (capture of the pass's programs) "
+          f"{time.perf_counter() - t0 - t_planes:.2f} s", flush=True)
+    for tag, mode in (("ont", {}), ("ont pairs", dict(want_pairs=True)),
+                      ("ont -F", dict(want_extents=True, overhang_ratio=0.2, filter_mode="internal"))):
+        replay_case(tag, engine, names, seqs, mode, dev, gpu_line)
+
+    # (b) stage 1 of phase 4's pass: every bucket's dispatch, no blocking call
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    bucket_rows = {L: rows for L, rows in bucket_rows.items() if rows}
+    dual, selfr = engine.query_ranks(names)
+    mode = dict(want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal")
+    programs = dict(engine.programs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        inflight = [x for L, rows in bucket_rows.items() for x in engine._dispatch(L, rows, seqs, dual, selfr, **mode)]
+    except RuntimeError as err:
+        fail(f"[graphs] phase 4's stage 1 blocked the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t_enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if engine.programs != programs:
+        fail("[graphs] phase 4's stage 1 captured a program: its warm-up did not")
+    print(f"[graphs] phase 4's stage 1 under set_sync_debug_mode('error'): {len(inflight)} super-batches over "
+          f"buckets {sorted(bucket_rows)}, no blocking call, enqueued in {t_enqueue:.6f} s", flush=True)
+
+    # (c) host batching alone, the programs' capture seconds, phase 4's pass
+    t0 = time.perf_counter()
+    batches = [(L, sb) for L, rows in bucket_rows.items() for sb in engine.super_batches(L, rows, seqs, dual, selfr)]
+    t_sb = time.perf_counter() - t0
+    for L, (_, _, codes, lengths, ids, d, sr) in batches:
+        engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)
+    t_arrays = time.perf_counter() - t0 - t_sb
+    print(f"[graphs] phase 4's host batching: super_batches {t_sb:.6f} s for {len(batches)} super-batches, "
+          f"program_arrays (2-bit pack) {t_arrays:.6f} s", flush=True)
+    print_captures("ont", engine)
+    del engine, inflight
+    for tag, single in (("multi-sub", multi), ("pacbio", pb)):
+        engine = device_engine_on_card(single["index"], dev)
+        replay_case(tag, engine, single["names"], single["seqs"], {}, dev, gpu_line)
+        print_captures(tag, engine)
+        del engine
+    rec = ont["record"]
+    print(f"[graphs] phase 4's warm pass: {rec['qps']:.1f} q/s, peak {rec['peak_mib']:.1f} MiB (reserved "
+          f"{rec['reserved_mib']:.1f} MiB), last_phases "
+          f"{json.dumps({k: round(v, 6) for k, v in rec['phases'].items()})} ({gpu_line})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
@@ -1060,12 +1229,14 @@ def main(argv=None) -> int:
         phase_done("phase 7, all-vs-all ONT")
         span_launches, pb_single = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
         phase_done("phase 8, PacBio")
-        acc_launches = accurate_paths(ck, dev, gpu_line, fq_acc, recs)
+        acc_launches, acc_multi = accurate_paths(ck, dev, gpu_line, fq_acc, recs)
         phase_done("phase 9, accurate reads, multi-sub")
         sharded_launches = sharded_paths(ck, dev, gpu_line, fq, ont_single, pb_single, ava_reads[:SHARD_AVA_READS])
         phase_done("phase 10, sharded engine and two processes")
         lib_launches = library_paths(ck, dev, gpu_line, fq, fq_ava, launches, ont_single["record"])
         phase_done("phase 11, library surface")
+        graph_paths(dev, gpu_line, ont_single, pb_single, acc_multi)
+        phase_done("phase 12, super-batch programs")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     def timing(m):

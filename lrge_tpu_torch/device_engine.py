@@ -4,8 +4,11 @@ Port of the single-device path of ``lrge_tpu/device_engine.py``: the
 index is split into sub-indexes by target when its expected anchors per
 query exceed the anchor buffer (``n_sub``, the reference's rule);
 queries are partitioned into length buckets, padded into super-batches,
-and each super-batch runs the whole pipeline on ``device``: for ONT on
-one sub-index the fused ``ops.overlap.sketch_map_many``, on several
+and each super-batch runs the whole pipeline on ``device`` as one
+program (``ops/program.py``: a CUDA graph a bucket and mode, captured
+by :meth:`DeviceOverlapEngine.warmup` or at first use, the reference's
+``jax.jit``): for ONT on one sub-index the fused
+``ops.overlap.sketch_map_many``, on several
 ``ops.overlap.sketch_lookup_many`` once and a map per sub
 (``ops.overlap.map_subs``); for the PacBio/HPC preset (``pb_mode``)
 host-sketched hash planes through ``ops.overlap.pb_map_many`` (wide-key
@@ -52,10 +55,8 @@ from .engine import OverlapEngine
 from .native import native
 from .ops.encode import make_batches
 from .ops.index import TargetIndex
-from .ops.overlap import (
-    HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, map_subs, minimizer_cap, pack2bit_host,
-    pb_map_many, sketch_lookup_many, sketch_map_many,
-)
+from .ops.overlap import HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host
+from .ops.program import ProgramKey, SuperBatchProgram, program_function
 from .ops.sketch import sketch_seqs_native
 from .ops.sketch_torch import sketch_core
 from .parallel.distributed import is_multihost
@@ -192,6 +193,12 @@ class DeviceOverlapEngine:
             )
         self.device_ok = len(index.keys) > 0
         self.gdev = None
+        # the super-batch programs by ProgramKey, for the planes they were
+        # captured over (a graph holds the planes' addresses), and their
+        # shared graph memory pool
+        self.programs = {}
+        self._programs_gdev = None
+        self._graph_pool = None
         self.sharded = None  # ShardedGroupedIndex (host planes) when sharded
         self.shards = []  # this process's shards, a GroupedDeviceIndex each
         self.lockstep = False  # the shards span processes
@@ -399,8 +406,10 @@ class DeviceOverlapEngine:
 
     def warmup(self, lengths=None, filter_ratio=None, filter_mode="internal", want_pairs=False) -> None:
         """Run each bucket that the mapping pass will use once on two
-        dummy reads, in the pass's own mode (builds the chain kernel and
-        primes the allocator)."""
+        dummy reads, in the pass's own mode: this captures the bucket's
+        super-batch program (:meth:`program`; the reference's ``warmup``
+        compiles its programs here), which builds the chain kernel and
+        primes the allocator."""
         if not self.device_ok:
             return
         if _has_native_count():
@@ -491,18 +500,51 @@ class DeviceOverlapEngine:
         )
         return mhash, torch.zeros((R, 1), dtype=torch.int64, device=self.device), mpos * 2 + mstrand, mcount
 
+    def program(self, L, A, SUP, *, want_pairs=False, want_extents=False, overhang_ratio=0.2,
+                filter_mode="internal") -> SuperBatchProgram:
+        """The super-batch program of bucket ``L`` (``A`` anchors, ``SUP``
+        batches) in this mode on the single-device planes, captured at
+        first use and cached; the cache is dropped when ``gdev`` changes."""
+        if self._programs_gdev is not self.gdev:
+            self.programs = {}
+            self._programs_gdev = self.gdev
+            self._graph_pool = None
+        gd = self.gdev
+        branch = "pacbio" if self.pb_mode else "ont" if gd.n_sub == 1 else "ont_multi"
+        filt = (float(overhang_ratio), filter_mode) if want_extents else (None, None)
+        key = ProgramKey(branch, L, A, SUP, self.batch_size, bool(want_pairs), bool(want_extents), *filt)
+        prog = self.programs.get(key)
+        if prog is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn, inputs = program_function(key, gd, self.params, window=self.window)
+            prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, self.device, pool=self._graph_pool)
+        return prog
+
+    def program_arrays(self, L, codes, lengths, ids, dual, selfr, seqs) -> tuple:
+        """One super-batch's host arrays in the order its program takes
+        them: ONT on one sub the 2-bit packed codes, on several the codes;
+        PacBio the host-sketched planes (:meth:`_pb_planes`) and the true
+        minimizer counts; then lengths, dual and self ranks."""
+        if self.pb_mode:
+            planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
+            qhi, qlo, mps = (a.reshape(*ids.shape, -1) for a in planes[:3])
+            return qhi, qlo, mps, planes[3].reshape(ids.shape), lengths, dual, selfr
+        if self.gdev.n_sub == 1:
+            return pack2bit_host(codes), lengths, dual, selfr
+        return codes, lengths, dual, selfr
+
     def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
         """Enqueue the super-batches of one length bucket; yields
         ``(nb, A, codes, lengths, ids, packed_device_plane,
         pair_device_plane_or_None)``.  ``mode`` holds the pair and ``-F``
-        arguments of :func:`sketch_map_many`; on a multi-sub index and
-        under ``pb_mode`` (no ``-F``: :meth:`supports_device_filter`)
-        one lookup per super-batch feeds one map per sub
-        (:func:`map_subs`, which merges them into the same planes); on a
-        sharded index the query planes (:meth:`query_planes`) go through
-        :func:`~lrge_tpu_torch.parallel.sharded.sharded_count`."""
+        arguments of :func:`~lrge_tpu_torch.ops.overlap.sketch_map_many`.
+        On one device each super-batch is one run of the bucket's
+        program (:meth:`program`, :meth:`program_arrays`); on a sharded
+        index the query planes (:meth:`query_planes`) go through
+        :func:`~lrge_tpu_torch.parallel.sharded.sharded_count`, eagerly."""
         put = lambda a: torch.from_numpy(a).to(self.device)
-        gd, p = self.gdev, self.params
+        p = self.params
         for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
             if self.sharded is not None:
                 q0, q1, mps, mcount = self.query_planes(codes, lengths, ids, seqs, L)
@@ -514,24 +556,9 @@ class DeviceOverlapEngine:
                 packed = packed.reshape(*ids.shape, 4).to(torch.int32)
                 if pairs is not None:
                     pairs = pairs.reshape(*ids.shape, -1).to(torch.int32)
-            elif self.pb_mode:
-                planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
-                qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
-                packed, pairs = pb_map_many(
-                    qhi, qlo, mps, put(planes[3].reshape(ids.shape)), put(lengths), put(dual), put(selfr),
-                    gd, p, num_anchors=A, window=self.window, want_pairs=mode["want_pairs"],
-                )
-            elif gd.n_sub == 1:
-                packed, pairs = sketch_map_many(
-                    put(pack2bit_host(codes)), put(lengths), put(dual), put(selfr),
-                    gd, p, num_anchors=A, window=self.window, **mode,
-                )
             else:
-                found, mps, mcount = sketch_lookup_many(put(codes), put(lengths), gd, p)
-                packed, pairs = map_subs(
-                    found, mps, mcount, put(lengths), put(dual), put(selfr), gd, p, num_anchors=A,
-                    window=self.window, want_pairs=mode["want_pairs"],
-                )
+                prog = self.program(L, A, ids.shape[0], **mode)
+                packed, pairs = prog.run(*self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs))
             yield nb, A, codes, lengths, ids, packed, pairs
 
     def count_batch(
@@ -608,7 +635,11 @@ class DeviceOverlapEngine:
             qdualrank, qselfrid = self.query_ranks(names)
             t1 = time.perf_counter()
             phases["prep"] = t1 - t0
-            # stage 1: enqueue every super-batch (the device runs behind)
+            # stage 1: enqueue every super-batch, one program replay each fed
+            # by asynchronous copies from pinned memory; nothing waits for
+            # the card until stage 2, so the host prepares the next
+            # super-batch while the card runs this one (the reference's
+            # device_engine.py:900-901)
             inflight = []
             for L in self.length_buckets:
                 if bucket_rows.get(L):

@@ -63,7 +63,10 @@ warps in flight; splitting rows at runs shortens the critical path to
 the longest run and fills the card.
 
 On a CPU tensor the wrapper runs :func:`chain_dp_skip_plain`; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  Inside a CUDA graph
+(``ops/program.py``) the wrapper runs once, at capture, and the graph's
+replays launch the kernel: :func:`recorded_launches` and
+:func:`add_launches` keep the counters meaning launches on the card.
 """
 
 from __future__ import annotations
@@ -249,6 +252,34 @@ def chain_dp_skip(
 chain_dp_skip.launches = 0  # the main path's variant
 chain_dp_skip.ext_launches = 0  # the extent (-F) variant
 chain_dp_skip.span_launches = 0  # the span (PacBio/HPC) variant
+COUNTERS = ("launches", "ext_launches", "span_launches")
+
+
+def launch_counts(counters=chain_dp_skip) -> dict:
+    """The launch counters' values, by name."""
+    return {c: getattr(counters, c) for c in COUNTERS}
+
+
+def recorded_launches(capture, counters=chain_dp_skip):
+    """Call ``capture()``, a CUDA graph capture, and return ``(its result,
+    the launches it recorded by counter)``.  The wrapper counted those
+    launches, but a capture records kernels into the graph and runs none,
+    so the counters are put back as they were; each replay adds them
+    (:func:`add_launches`), because a replay does not run the wrapper."""
+    before = launch_counts(counters)
+    try:
+        out = capture()
+        recorded = {c: n - before[c] for c, n in launch_counts(counters).items()}
+    finally:
+        for c, n in before.items():
+            setattr(counters, c, n)
+    return out, recorded
+
+
+def add_launches(recorded: dict, counters=chain_dp_skip) -> None:
+    """Add one replay's launches (:func:`recorded_launches`) to the counters."""
+    for c, n in recorded.items():
+        setattr(counters, c, getattr(counters, c) + n)
 
 
 def _mg_log2(x: torch.Tensor) -> torch.Tensor:

@@ -406,7 +406,9 @@ def _unpack2bit(codes_p: torch.Tensor, L: int) -> torch.Tensor:
     ``[..., L] uint8`` (4 bases per byte, little-endian within the
     byte).  Ambiguous bases are not representable: the host recomputes
     their rows (sketch-quirk triage)."""
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=codes_p.device)
+    # built on the device: a host-built constant would be a blocking copy
+    # that no CUDA graph can capture (ops/program.py)
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=codes_p.device)
     u = (codes_p[..., :, None] >> shifts) & 3
     return u.reshape(*codes_p.shape[:-1], codes_p.shape[-1] * 4)[..., :L]
 
@@ -468,6 +470,12 @@ def _dict_lookup(mhash, uhash, boff, *, k, bucket_bits, bucket_kmax):
     return torch.where(hit, pos, -1).max(dim=-1).values
 
 
+def _f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``np.float32(value)``, filled on ``device``
+    (no host copy, so capturable; the comparisons stay float32)."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32, device=device)
+
+
 def _q_occ_drop_narrow(mhash, mid_occ, q_occ_frac):
     """mm_seed_mz_flt: drop query minimizers occurring > mid_occ times
     within the query AND > q_occ_frac of its minimizer count; inactive
@@ -484,7 +492,7 @@ def _q_occ_drop_narrow(mhash, mid_occ, q_occ_frac):
     run_cnt = run_end - run_start + 1
     cnt_by_slot = torch.empty_like(run_cnt).scatter_(1, sslot, run_cnt)
     n_mini = (mhash != INF).sum(dim=1)[:, None]
-    frac = torch.tensor(np.float32(q_occ_frac), device=dev)
+    frac = _f32_scalar(q_occ_frac, dev)
     return (
         (n_mini > mid_occ)
         & (cnt_by_slot > mid_occ)
@@ -509,7 +517,7 @@ def _q_occ_drop_wide(qhi, qlo, pad, mid_occ, q_occ_frac):
     run_cnt = run_end - run_start + 1
     cnt_by_slot = torch.empty_like(run_cnt).scatter_(1, sslot, run_cnt)
     n_mini = (~pad).sum(dim=1)[:, None]
-    frac = torch.tensor(np.float32(q_occ_frac), device=dev)
+    frac = _f32_scalar(q_occ_frac, dev)
     return (
         (n_mini > mid_occ)
         & (cnt_by_slot > mid_occ)
@@ -684,7 +692,7 @@ def _extent_filter(f, rid_s, key2_s, valid_s, boundary, run_end, min_score, ext)
     )
     maplen = torch.maximum(qe - qs, re_ - rs).clamp(min=1)
     # float32 as in the reference: float64 would flip boundary rows
-    ratio = torch.tensor(np.float32(ext["ratio"]), device=f.device)
+    ratio = _f32_scalar(ext["ratio"], f.device)
     if ext["mode"] == "internal":
         dropped = (ov.to(torch.float32) / maplen.to(torch.float32)) < ratio
     else:

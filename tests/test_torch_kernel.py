@@ -318,6 +318,9 @@ def test_multisub_engine_on_card_matches_host():
             index, device=torch.device("cuda"), batch_size=16, num_anchors=1536, length_buckets=(4096,)
         )
         assert dev.gdev.n_sub >= 2
+        # the pass's program is captured here, so the pass's launches are
+        # its replay's alone
+        dev.warmup([len(q) for q in queries])
         before = getattr(chain_dp_skip, counter)
         res = dev.count_batch(qnames, queries)
         # 40 rows: 3 batches of 16, one super-batch
@@ -365,3 +368,70 @@ def test_sharded_engine_on_card_matches_single_device():
         np.testing.assert_array_equal(res.had_mapping, one.had_mapping)
         host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
         np.testing.assert_array_equal(res.counts, [c for c, _ in host])
+
+
+@pytest.mark.gpu
+def test_programs_on_card_match_eager():
+    # every branch's super-batch program (ONT on one sub-index, plain,
+    # pairs and -F; ONT on several; PacBio) as a CUDA graph: two replays
+    # run before either output is read, each bit-equal to the eager
+    # function on the same inputs; a replay adds its graph's launches to
+    # the counters; a warm pass enqueues without syncing the host
+    need_cuda()
+    from lrge_tpu_torch.ops.chain_kernel import launch_counts
+
+    rng = np.random.default_rng(2024)
+    genome = rng.choice(list(b"ACGT"), size=100_000).astype(np.uint8).tobytes()
+
+    def reads(n, lo, hi):
+        out = []
+        for length in rng.integers(lo, hi, n):
+            pos = int(rng.integers(0, len(genome) - length))
+            s = np.frombuffer(genome[pos : pos + length], np.uint8).copy()
+            hit = rng.random(length) < 0.03
+            s[hit] = rng.choice(list(b"ACGT"), size=int(hit.sum()))
+            out.append(s.tobytes())
+        return out
+
+    targets, queries = reads(80, 1500, 2500), reads(48, 600, 2000)
+    tnames = [b"t%d" % i for i in range(80)]
+    qnames = [b"q%d" % i for i in range(48)]
+    card = torch.device("cuda", 0)
+    cases = [
+        (Platform.NANOPORE, 4096, dict()), (Platform.NANOPORE, 4096, dict(want_pairs=True)),
+        (Platform.NANOPORE, 4096, dict(want_extents=True, filter_mode="overhang")),
+        (Platform.NANOPORE, 1024, dict()), (Platform.PACBIO, 4096, dict(want_pairs=True)),
+    ]
+    for platform, anchors, mode in cases:
+        index = build_index(targets, tnames, preset_for(platform, dual=True))
+        dev = DeviceOverlapEngine(
+            index, device=card, batch_size=8, num_anchors=anchors, length_buckets=(2048,), super_batch=1
+        )
+        assert (dev.gdev.n_sub >= 2) == (anchors == 1024)
+        _, _, bucket_rows = dev.plan_rows(queries, range(48))
+        dual, selfr = dev.query_ranks(qnames)
+        batches = list(dev.super_batches(2048, bucket_rows[2048], queries, dual, selfr))
+        assert len(batches) >= 2
+        runs = []
+        for _, A, codes, lengths, ids, d, s in batches[:2]:
+            prog = dev.program(2048, A, ids.shape[0], **mode)
+            arrays = dev.program_arrays(2048, codes, lengths, ids, d, s, queries)
+            before = launch_counts()
+            runs.append((prog, arrays, prog.run(*arrays)))
+            after = launch_counts()
+            assert prog.graph is not None and sum(prog.launches.values()) == dev.gdev.n_sub
+            assert {c: after[c] - before[c] for c in after} == prog.launches
+        for prog, arrays, got in runs:
+            want = prog.fn(*(torch.from_numpy(a).to(card) for a in arrays))
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None) and (g is None or torch.equal(g, w)), (platform, mode)
+        assert not torch.equal(runs[0][2][0], runs[1][2][0])
+        # the warm pass: stage 1 makes no blocking call
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            full = dict(dict(want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal"), **mode)
+            inflight = list(dev._dispatch(2048, bucket_rows[2048], queries, dual, selfr, **full))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(inflight) == len(batches)

@@ -62,9 +62,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    engine whose index is sharded in two by target, both shards on the
    card (``device=[cuda:0, cuda:0]``), over phase 4's index, phase 8's
    PacBio index and an all-vs-all index of the first 5,000 reads of
-   phase 7's subsample: every row's counts, had-mapping flags and pair
+   phase 7's subsample, each pass through the engine's query and shard
+   programs (one CUDA graph a shard, bucket and mode, captured by the
+   pass's warm-up): every row's counts, had-mapping flags and pair
    sets must equal the single-device engine's, 300 rows the host's, and
-   the variant must launch once a shard and super-batch; (b) the CLI at
+   the variant must launch once a shard and super-batch (replays); then
+   a same-call A/B of each pass, programmed against eager (the plain
+   ``sharded_count``, in turns P E E P, every row equal), with the
+   programs' capture seconds and one super-batch's ms both ways; (b) the CLI at
    phase 4's run shape in two processes joined over gloo (two ranks on
    one card: NCCL refuses a duplicate GPU), each holding one shard, the
    forward two-set path counting in lockstep: rank 0's estimate must be
@@ -92,7 +97,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    host; (c) each program's capture seconds, a replay's ms against the
    eager call's (CUDA events, mean of 20), the aten ops an eager call
    dispatches, ``super_batches`` host seconds alone, and phase 4's warm
-   pass's ``last_phases``, q/s and peak MiB.
+   pass's ``last_phases``, q/s and peak MiB; (d) the sharded programs on
+   fresh two-shard engines (both shards on the card) over phase 4's and
+   phase 8's indexes: the first two super-batches of the fullest bucket
+   through the query program and each shard's, each merged plane held
+   bit for bit to the eager ``sharded_count``, each program's replay ms,
+   and phase 10's ONT stage 1 under ``set_sync_debug_mode("error")``.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
@@ -487,12 +497,12 @@ def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     counts = read_counts(ck)
     if counts[variant] <= 0:
         fail(f"[{tag}] the pass never launched the chain kernel's {variant} variant")
-    if engine.sharded is None:
-        # one replay a super-batch, n_sub launches each, beside the eager
-        # runs before any capture inside the pass
-        want = engine.gdev.n_sub * super_batch_count(engine, seqs)
-        if counts[variant] - warmup_counts()[1][variant] != want:
-            fail(f"[{tag}] {counts} launches: {launch_split(counts)}, not n_sub x super-batches = {want}")
+    # one replay a super-batch, n_sub launches each (a sharded index: one
+    # a shard), beside the eager runs before any capture inside the pass
+    per = engine.gdev.n_sub if engine.sharded is None else len(engine.shards)
+    want = per * super_batch_count(engine, seqs)
+    if counts[variant] - warmup_counts()[1][variant] != want:
+        fail(f"[{tag}] {counts} launches: {launch_split(counts)}, not {per} x super-batches = {want}")
     peak = torch.cuda.max_memory_allocated()
     # the graphs' private pools are reserved, not allocated, between replays
     reserved = torch.cuda.max_memory_reserved()
@@ -825,20 +835,93 @@ def check_rows_equal(tag, res, want, pairs=None, want_pairs=None):
           f"{' (pair sets too)' if pairs is not None else ''}", flush=True)
 
 
+def eager_sharded_run(engine):
+    """The plain version of ``engine.sharded_run``: the query side as eager
+    calls (the ONT ``sketch_core``, or the PacBio host planes) and every
+    shard through the eager ``sharded_count``, as the engine ran them
+    before its programs."""
+    from lrge_tpu_torch.ops.overlap import minimizer_cap
+    from lrge_tpu_torch.ops.sketch_torch import sketch_core
+    from lrge_tpu_torch.parallel import sharded_count
+
+    def run(L, A, arrays, want_pairs=False):
+        p = engine.params
+        SUP, B = arrays[-1].shape
+        R = SUP * B
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(engine.device).reshape(R, *a.shape[2:])
+        lengths, dual, selfr = (put(a) for a in arrays[-3:])
+        if engine.pb_mode:
+            q0, q1, mps, mcount = (put(a) for a in arrays[:4])
+        else:
+            mhash, mpos, mstrand, mcount = sketch_core(
+                put(arrays[0]), lengths, k=p.k, w=p.w, max_minimizers=minimizer_cap(L)
+            )
+            q0, q1, mps = mhash, torch.zeros((R, 1), dtype=torch.int64, device=engine.device), mpos * 2 + mstrand
+        counts, n_anchors, max_run, pairs = sharded_count(
+            engine.shards, q0, q1, mps, lengths, dual, selfr, p, num_anchors=A, window=engine.window,
+            want_pairs=want_pairs,
+        )
+        packed = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1).reshape(SUP, B, 4)
+        return packed.to(torch.int32), None if pairs is None else pairs.reshape(SUP, B, -1).to(torch.int32)
+
+    return run
+
+
+def first_super_batches(engine, names, seqs, n=2):
+    """``(L, [(A, program arrays), ...])``: the first ``n`` super-batches of
+    the fullest bucket of one pass over ``seqs``."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
+    dual, selfr = engine.query_ranks(names)
+    out = []
+    for _, A, codes, lengths, ids, d, sr in engine.super_batches(L, bucket_rows[L], seqs, dual, selfr):
+        out.append((A, engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)))
+        if len(out) == n:
+            break
+    return L, out
+
+
 def sharded_pass(ck, tag, engine, names, seqs, gpu_line, want, pairs=False, want_pairs=None):
-    """One warm pass of a sharded engine: timed, its variant launched once a
-    shard and super-batch, every row held to the single-device pass
-    ``want``, 300 rows to the host.  Returns the launches."""
+    """One warm pass of a sharded engine through its programs: timed, its
+    variant launched once a shard and super-batch (replays), every row
+    held to the single-device pass ``want``, 300 rows to the host; then
+    the same-call A/B against the plain version, in turns P E E P (the
+    pass above is the first P), every row equal, with the programs'
+    capture seconds and one super-batch's ms both ways (CUDA events, the
+    first super-batch of the fullest bucket).  Returns the launches."""
     variant = "span" if engine.pb_mode else "main"
     engine.warmup([len(s) for s in seqs], want_pairs=pairs)
-    res, collected, report, _ = timed_pass(tag, engine, names, seqs, pairs=pairs)
+    captures = {f"{k.branch}{'' if k.shard is None else k.shard} L={k.L}": round(p.capture_s, 3)
+                for k, p in engine.programs.items()}
+    res, collected, report, rec = timed_pass(tag, engine, names, seqs, pairs=pairs)
     n, sb = read_counts(ck)[variant], super_batch_count(engine, seqs)
     print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
-    if n != SHARDS * sb:
-        fail(f"[{tag}] {n} {variant} launches, not {SHARDS} shards x {sb} super-batches")
+    if n != SHARDS * sb or warmup_counts()[0]:
+        fail(f"[{tag}] {n} {variant} launches, not {SHARDS} shards x {sb} super-batches of replays")
     print(f"[{tag}] {variant} launches {n} = {SHARDS} shards x {sb} super-batches", flush=True)
     check_rows_equal(tag, res, want, collected, want_pairs)
     check_sample(tag, engine, names, seqs, res, collected)
+    qps = {"programmed": [rec["qps"]], "eager": []}
+    for kind in ("eager", "eager", "programmed"):
+        if kind == "eager":
+            engine.sharded_run = eager_sharded_run(engine)
+        try:
+            r, got_pairs, _, rec = timed_pass(f"{tag} {kind}", engine, names, seqs, pairs=pairs)
+        finally:
+            vars(engine).pop("sharded_run", None)
+        bad = np.flatnonzero((r.counts != res.counts) | (r.had_mapping != res.had_mapping))
+        if len(bad) or (pairs and (got_pairs.keys() != collected.keys() or any(
+                set(v.tolist()) != set(collected[i].tolist()) for i, v in got_pairs.items()))):
+            fail(f"[{tag}] the {kind} A/B pass differs from the programmed pass")
+        qps[kind].append(rec["qps"])
+    L, ((A, arrays),) = first_super_batches(engine, names, seqs, n=1)
+    prog_ms = cuda_ms(lambda: engine.sharded_run(L, A, arrays, want_pairs=pairs))
+    eager_ms = cuda_ms(lambda: eager_sharded_run(engine)(L, A, arrays, want_pairs=pairs))
+    print(f"[{tag}] A/B in one call, P E E P, every row equal: programmed (CUDA graphs) "
+          f"{', '.join(f'{x:.1f}' for x in qps['programmed'])} q/s, eager (plain sharded_count) "
+          f"{', '.join(f'{x:.1f}' for x in qps['eager'])} q/s; capture s {json.dumps(captures)}; one super-batch "
+          f"of bucket L={L} (A={A}, {arrays[-1].size} rows): programmed {prog_ms:.4f} ms, eager {eager_ms:.4f} ms "
+          f"({gpu_line})", flush=True)
     return n
 
 
@@ -1082,16 +1165,11 @@ def replay_case(tag, engine, names, seqs, mode, dev, gpu_line):
     fullest bucket replayed one after the other, then each output held
     bit for bit to the eager function on the same inputs; prints capture
     seconds, replay against eager ms and the aten ops of an eager call."""
-    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
-    L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
-    dual, selfr = engine.query_ranks(names)
+    L, batches = first_super_batches(engine, names, seqs)
     runs = []
-    for _, A, codes, lengths, ids, d, sr in engine.super_batches(L, bucket_rows[L], seqs, dual, selfr):
-        prog = engine.program(L, A, ids.shape[0], **mode)
-        arrays = engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)
+    for A, arrays in batches:
+        prog = engine.program(L, A, arrays[-1].shape[0], **mode)
         runs.append((arrays, prog.run(*arrays)))
-        if len(runs) == 2:
-            break
     if len(runs) < 2 or prog.graph is None:
         fail(f"[graphs] {tag}: want two replayed super-batches of bucket {L}, got {len(runs)}")
     for i, (arrays, got) in enumerate(runs):
@@ -1112,10 +1190,82 @@ def replay_case(tag, engine, names, seqs, mode, dev, gpu_line):
           f"{aten_ops(lambda: prog.fn(*inputs))} aten ops an eager call ({gpu_line})", flush=True)
 
 
+def program_tag(key) -> str:
+    return f"{key.branch}{'' if key.shard is None else key.shard}"
+
+
 def print_captures(tag, engine):
-    caps = {f"{k.branch} L={k.L} pairs={k.want_pairs} -F={k.filter_mode}": round(p.capture_s, 3)
+    caps = {f"{program_tag(k)} L={k.L} pairs={k.want_pairs} -F={k.filter_mode}": round(p.capture_s, 3)
             for k, p in engine.programs.items()}
     print(f"[graphs] {tag} engine: {len(caps)} programs, capture s {json.dumps(caps)}", flush=True)
+
+
+def stage1_without_sync(tag, engine, names, seqs):
+    """Phase 12 (b): stage 1 of a warm pass (every bucket's dispatch) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing may block the
+    host, and no program may be captured in it."""
+    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
+    bucket_rows = {L: rows for L, rows in bucket_rows.items() if rows}
+    dual, selfr = engine.query_ranks(names)
+    mode = dict(want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal")
+    programs = dict(engine.programs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        inflight = [x for L, rows in bucket_rows.items() for x in engine._dispatch(L, rows, seqs, dual, selfr, **mode)]
+    except RuntimeError as err:
+        fail(f"[graphs] {tag}'s stage 1 blocked the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t_enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if engine.programs != programs:
+        fail(f"[graphs] {tag}'s stage 1 captured a program: its warm-up did not")
+    print(f"[graphs] {tag}'s stage 1 under set_sync_debug_mode('error'): {len(inflight)} super-batches over "
+          f"buckets {sorted(bucket_rows)}, no blocking call, enqueued in {t_enqueue:.6f} s", flush=True)
+    return bucket_rows, dual, selfr
+
+
+def sharded_replay_case(tag, single, dev, gpu_line, stage1=False):
+    """Phase 12 (d): a fresh engine over ``single``'s index sharded in two,
+    both shards on the card, warmed up; the first two super-batches of
+    the fullest bucket through the query program and each shard's, one
+    after the other, then each merged plane held bit for bit to the plain
+    version (:func:`eager_sharded_run`) on the same arrays; each
+    program's capture s and replay ms, and the ms and aten ops of an eager
+    super-batch; with ``stage1`` the pass's stage 1 without a sync."""
+    from lrge_tpu_torch.device_engine import DeviceOverlapEngine
+
+    names, seqs = single["names"], single["seqs"]
+    engine = DeviceOverlapEngine(single["index"], device=[dev] * SHARDS)
+    engine.warmup([len(s) for s in seqs])
+    L, batches = first_super_batches(engine, names, seqs)
+    if len(batches) < 2:
+        fail(f"[graphs] {tag}: want two super-batches of bucket {L}, got {len(batches)}")
+    runs = [engine.sharded_run(L, A, arrays) for A, arrays in batches]
+    plain = eager_sharded_run(engine)
+    for i, ((A, arrays), (got, _)) in enumerate(zip(batches, runs)):
+        if not torch.equal(got, plain(L, A, arrays)[0]):
+            fail(f"[graphs] {tag}: super-batch {i}'s programmed plane != the eager sharded_count's")
+    if torch.equal(runs[0][0], runs[1][0]):
+        fail(f"[graphs] {tag}: the two super-batches gave equal planes")
+    A, arrays = batches[1]
+    query, shards = engine.shard_programs(L, A, *arrays[-1].shape)
+    if any(p.graph is None for p in (query, *shards)):
+        fail(f"[graphs] {tag}: a program is not a CUDA graph")
+    # the static inputs hold the second super-batch
+    replay = {program_tag(p.key): round(cuda_ms(p.graph.replay), 4) for p in (query, *shards)}
+    capture = {program_tag(p.key): round(p.capture_s, 3) for p in (query, *shards)}
+    prog_ms = cuda_ms(lambda: engine.sharded_run(L, A, arrays))
+    eager_ms = cuda_ms(lambda: plain(L, A, arrays))
+    print(f"[graphs] {tag}: bucket L={L}, {query.key.SUP} x {query.key.B} rows, A={A}, {SHARDS} shards on "
+          f"{dev}: 2 super-batches through the query program and {len(shards)} shard programs, merged planes "
+          f"bit-equal to the eager sharded_count; capture s {json.dumps(capture)}, replay ms {json.dumps(replay)}; "
+          f"a super-batch (copies, replays, merge) {prog_ms:.4f} ms, eager {eager_ms:.4f} ms, "
+          f"{aten_ops(lambda: plain(L, A, arrays))} aten ops an eager super-batch ({gpu_line})", flush=True)
+    if stage1:
+        stage1_without_sync(f"{tag} (phase 10's ONT pass)", engine, names, seqs)
 
 
 def graph_paths(dev, gpu_line, ont, pb, multi):
@@ -1126,7 +1276,8 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
     multi-sub, PacBio); (b) phase 4's stage 1, after its warm-up, under
     ``torch.cuda.set_sync_debug_mode("error")``; (c) ``super_batches``
     host seconds, each program's capture seconds and phase 4's warm pass
-    record."""
+    record; (d) the sharded programs over phases 4's and 8's indexes
+    (:func:`sharded_replay_case`)."""
     t0 = time.perf_counter()
     engine = device_engine_on_card(ont["index"], dev)
     names, seqs = ont["names"], ont["seqs"]
@@ -1139,26 +1290,7 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
         replay_case(tag, engine, names, seqs, mode, dev, gpu_line)
 
     # (b) stage 1 of phase 4's pass: every bucket's dispatch, no blocking call
-    _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
-    bucket_rows = {L: rows for L, rows in bucket_rows.items() if rows}
-    dual, selfr = engine.query_ranks(names)
-    mode = dict(want_pairs=False, want_extents=False, overhang_ratio=0.2, filter_mode="internal")
-    programs = dict(engine.programs)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        inflight = [x for L, rows in bucket_rows.items() for x in engine._dispatch(L, rows, seqs, dual, selfr, **mode)]
-    except RuntimeError as err:
-        fail(f"[graphs] phase 4's stage 1 blocked the host: {err}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    t_enqueue = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    if engine.programs != programs:
-        fail("[graphs] phase 4's stage 1 captured a program: its warm-up did not")
-    print(f"[graphs] phase 4's stage 1 under set_sync_debug_mode('error'): {len(inflight)} super-batches over "
-          f"buckets {sorted(bucket_rows)}, no blocking call, enqueued in {t_enqueue:.6f} s", flush=True)
+    bucket_rows, dual, selfr = stage1_without_sync("phase 4", engine, names, seqs)
 
     # (c) host batching alone, the programs' capture seconds, phase 4's pass
     t0 = time.perf_counter()
@@ -1170,12 +1302,15 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
     print(f"[graphs] phase 4's host batching: super_batches {t_sb:.6f} s for {len(batches)} super-batches, "
           f"program_arrays (2-bit pack) {t_arrays:.6f} s", flush=True)
     print_captures("ont", engine)
-    del engine, inflight
+    del engine
     for tag, single in (("multi-sub", multi), ("pacbio", pb)):
         engine = device_engine_on_card(single["index"], dev)
         replay_case(tag, engine, single["names"], single["seqs"], {}, dev, gpu_line)
         print_captures(tag, engine)
         del engine
+    # (d) the sharded programs
+    sharded_replay_case("sharded", ont, dev, gpu_line, stage1=True)
+    sharded_replay_case("sharded pacbio", pb, dev, gpu_line)
     rec = ont["record"]
     print(f"[graphs] phase 4's warm pass: {rec['qps']:.1f} q/s, peak {rec['peak_mib']:.1f} MiB (reserved "
           f"{rec['reserved_mib']:.1f} MiB), last_phases "

@@ -27,11 +27,15 @@ strategies filter on the host, as the reference does).
 With several devices (every visible CUDA device by default, or the
 caller's list, cut to ``LRGE_SHARDS``) the engine shards the index by
 target instead (``parallel/sharded.py``, the reference's set-up at
-device_engine.py:253-323): each super-batch is sketched once and counted
-against every shard, each on its own device.  Under a multi-process
-launch the shards span every process's devices, and the forward
-two-set path counts in lockstep (``parallel/distributed.py``); engines
-built ``local_only`` shard over this process's devices alone.
+device_engine.py:253-323): each super-batch is sketched once by a
+``"query"`` program on the home device and counted against every shard
+by a ``"shard"`` program on the shard's device (:meth:`shard_programs`,
+the reference's jitted ``sharded_count_fn``), the merge between them.
+Under a multi-process launch the shards span every process's devices,
+and the forward two-set path counts in lockstep
+(``parallel/distributed.py``), replaying the same programs at every
+ring hop; engines built ``local_only`` shard over this process's
+devices alone.
 
 Shape knobs, as the reference reads them: ``LRGE_DEVICE_BATCH``,
 ``LRGE_DEVICE_ANCHORS``, ``LRGE_DEVICE_WINDOW``, ``LRGE_DEVICE_SUPER``,
@@ -58,9 +62,8 @@ from .ops.index import TargetIndex
 from .ops.overlap import HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host
 from .ops.program import ProgramKey, SuperBatchProgram, program_function
 from .ops.sketch import sketch_seqs_native
-from .ops.sketch_torch import sketch_core
 from .parallel.distributed import is_multihost
-from .parallel.sharded import ShardedGroupedIndex, sharded_count
+from .parallel.sharded import ShardedGroupedIndex, sharded_count_programs
 
 logger = logging.getLogger("lrge")
 
@@ -194,13 +197,14 @@ class DeviceOverlapEngine:
         self.device_ok = len(index.keys) > 0
         self.gdev = None
         # the super-batch programs by ProgramKey, for the planes they were
-        # captured over (a graph holds the planes' addresses), and their
-        # shared graph memory pool
+        # captured over (``gdev`` and ``shards``: a graph holds the planes'
+        # addresses), and their graph memory pools, one a device
         self.programs = {}
-        self._programs_gdev = None
-        self._graph_pool = None
+        self._programs_planes = ()
+        self._graph_pools = {}
         self.sharded = None  # ShardedGroupedIndex (host planes) when sharded
         self.shards = []  # this process's shards, a GroupedDeviceIndex each
+        self.first_shard = 0  # the global number of shards[0]
         self.lockstep = False  # the shards span processes
         if not self.device_ok:
             return
@@ -212,9 +216,9 @@ class DeviceOverlapEngine:
                 raise ValueError(f"LRGE_MESH_DATA={n_data}: the data axis is the {nproc} process(es)")
             sgi = ShardedGroupedIndex.from_host(index, n_shards)
             if sgi is not None:
-                first = (torch.distributed.get_rank() if nproc > 1 else 0) * len(self.devices)
+                self.first_shard = (torch.distributed.get_rank() if nproc > 1 else 0) * len(self.devices)
                 self.sharded = sgi
-                self.shards = sgi.place(self.devices, first)
+                self.shards = sgi.place(self.devices, self.first_shard)
                 self.lockstep = nproc > 1
                 logger.debug(
                     "device engine: sharded over %d devices (%dx%d)", n_shards, nproc, len(self.devices)
@@ -407,9 +411,10 @@ class DeviceOverlapEngine:
     def warmup(self, lengths=None, filter_ratio=None, filter_mode="internal", want_pairs=False) -> None:
         """Run each bucket that the mapping pass will use once on two
         dummy reads, in the pass's own mode: this captures the bucket's
-        super-batch program (:meth:`program`; the reference's ``warmup``
-        compiles its programs here), which builds the chain kernel and
-        primes the allocator."""
+        super-batch program (:meth:`program`; on a sharded index its query
+        and shard programs, :meth:`shard_programs`; the reference's
+        ``warmup`` compiles its programs here), which builds the chain
+        kernel and primes the allocator."""
         if not self.device_ok:
             return
         if _has_native_count():
@@ -482,57 +487,78 @@ class DeviceOverlapEngine:
             mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (span[:c] << 1) | mz.strand.astype(np.int32)[:c]
         return qhi, qlo, mps, mcount
 
-    def query_planes(self, codes, lengths, ids, seqs, L):
-        """The sharded path's query planes of a super-batch (``ids`` ``[NB,
-        B]``, -1 padding), flattened to ``R = NB * B`` rows on
-        ``self.device``: ``(q0, q1, mps, mcount)``.  ONT: the device sketch
-        of the unpacked ``codes`` (the reference's ``sketch_many``), a
-        dummy ``q1``; PacBio: the host planes (:meth:`_pb_planes`)."""
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        M = minimizer_cap(L)
-        if self.pb_mode:
-            planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], M)
-            return tuple(put(a) for a in planes)
-        p = self.params
-        R = ids.size
-        mhash, mpos, mstrand, mcount = sketch_core(
-            put(codes.reshape(R, -1)), put(lengths.reshape(R)), k=p.k, w=p.w, max_minimizers=M
-        )
-        return mhash, torch.zeros((R, 1), dtype=torch.int64, device=self.device), mpos * 2 + mstrand, mcount
-
     def program(self, L, A, SUP, *, want_pairs=False, want_extents=False, overhang_ratio=0.2,
                 filter_mode="internal") -> SuperBatchProgram:
         """The super-batch program of bucket ``L`` (``A`` anchors, ``SUP``
-        batches) in this mode on the single-device planes, captured at
-        first use and cached; the cache is dropped when ``gdev`` changes."""
-        if self._programs_gdev is not self.gdev:
-            self.programs = {}
-            self._programs_gdev = self.gdev
-            self._graph_pool = None
+        batches) in this mode on the single-device planes (:meth:`_program`)."""
         gd = self.gdev
         branch = "pacbio" if self.pb_mode else "ont" if gd.n_sub == 1 else "ont_multi"
         filt = (float(overhang_ratio), filter_mode) if want_extents else (None, None)
         key = ProgramKey(branch, L, A, SUP, self.batch_size, bool(want_pairs), bool(want_extents), *filt)
+        return self._program(key, gd, self.device)
+
+    def shard_programs(self, L, A, SUP, B, want_pairs=False) -> tuple:
+        """``(query, shards)``: the programs of one sharded super-batch of
+        ``SUP`` x ``B`` rows in bucket ``L`` (``A`` anchors), the query
+        side on the home device and one program a local shard on its
+        shard's device, keyed by its global number (:meth:`_program`).  The
+        query program serves every mode."""
+        query = self._program(ProgramKey("query", L, A, SUP, B), self.shards[0], self.device)
+        shards = [
+            self._program(
+                ProgramKey("shard", L, A, SUP, B, bool(want_pairs), shard=self.first_shard + i), gi, gi.uhash.device
+            )
+            for i, gi in enumerate(self.shards)
+        ]
+        return query, shards
+
+    def _program(self, key: ProgramKey, gi, device: torch.device) -> SuperBatchProgram:
+        """The program of ``key`` over the planes ``gi`` on ``device``,
+        captured at first use (on the card into the device's graph pool)
+        and cached.  The cache and the pools are dropped when ``gdev`` or
+        ``shards`` change: a graph holds the planes' addresses."""
+        planes = (self.gdev, *self.shards)
+        if tuple(map(id, planes)) != tuple(map(id, self._programs_planes)):
+            self.programs, self._programs_planes, self._graph_pools = {}, planes, {}
         prog = self.programs.get(key)
         if prog is None:
-            if self.device.type == "cuda" and self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            fn, inputs = program_function(key, gd, self.params, window=self.window)
-            prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, self.device, pool=self._graph_pool)
+            pool = None
+            if device.type == "cuda":
+                pool = self._graph_pools.get(device)
+                if pool is None:
+                    pool = self._graph_pools[device] = torch.cuda.graph_pool_handle()
+            fn, inputs = program_function(key, gi, self.params, window=self.window)
+            prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, device, pool=pool)
         return prog
 
     def program_arrays(self, L, codes, lengths, ids, dual, selfr, seqs) -> tuple:
         """One super-batch's host arrays in the order its program takes
-        them: ONT on one sub the 2-bit packed codes, on several the codes;
-        PacBio the host-sketched planes (:meth:`_pb_planes`) and the true
-        minimizer counts; then lengths, dual and self ranks."""
+        them: ONT on one sub the 2-bit packed codes, on several or on a
+        sharded index the codes; PacBio the host-sketched planes
+        (:meth:`_pb_planes`) and the true minimizer counts; then lengths,
+        dual and self ranks."""
         if self.pb_mode:
             planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
             qhi, qlo, mps = (a.reshape(*ids.shape, -1) for a in planes[:3])
             return qhi, qlo, mps, planes[3].reshape(ids.shape), lengths, dual, selfr
-        if self.gdev.n_sub == 1:
+        if self.sharded is None and self.gdev.n_sub == 1:
             return pack2bit_host(codes), lengths, dual, selfr
         return codes, lengths, dual, selfr
+
+    def sharded_run(self, L, A, arrays, want_pairs=False) -> tuple:
+        """One sharded super-batch of :meth:`program_arrays`' host arrays:
+        the query program's run on the home device, each shard program's
+        run fed from its outputs, the merge on the home device
+        (:func:`~lrge_tpu_torch.parallel.sharded.sharded_count_programs`).
+        Returns the ``[SUP, B, 4]`` int32 plane and the pair plane (or
+        None), as a single-device program run does; no call waits for the
+        card."""
+        SUP, B = arrays[-1].shape
+        query, shards = self.shard_programs(L, A, SUP, B, want_pairs)
+        *planes, mcount = query.run(*arrays)
+        counts, n_anchors, max_run, pairs = sharded_count_programs(shards, *planes)
+        packed = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1).reshape(SUP, B, 4).to(torch.int32)
+        return packed, None if pairs is None else pairs.reshape(SUP, B, -1).to(torch.int32)
 
     def _dispatch(self, L, rows_b, seqs, qdualrank, qselfrid, **mode):
         """Enqueue the super-batches of one length bucket; yields
@@ -541,24 +567,14 @@ class DeviceOverlapEngine:
         arguments of :func:`~lrge_tpu_torch.ops.overlap.sketch_map_many`.
         On one device each super-batch is one run of the bucket's
         program (:meth:`program`, :meth:`program_arrays`); on a sharded
-        index the query planes (:meth:`query_planes`) go through
-        :func:`~lrge_tpu_torch.parallel.sharded.sharded_count`, eagerly."""
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        p = self.params
+        index one run of the query program and of each shard's
+        (:meth:`sharded_run`)."""
         for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
+            arrays = self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs)
             if self.sharded is not None:
-                q0, q1, mps, mcount = self.query_planes(codes, lengths, ids, seqs, L)
-                counts, n_anchors, max_run, pairs = sharded_count(
-                    self.shards, q0, q1, mps, put(lengths).reshape(-1), put(dual).reshape(-1),
-                    put(selfr).reshape(-1), p, num_anchors=A, window=self.window, want_pairs=mode["want_pairs"],
-                )
-                packed = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1)
-                packed = packed.reshape(*ids.shape, 4).to(torch.int32)
-                if pairs is not None:
-                    pairs = pairs.reshape(*ids.shape, -1).to(torch.int32)
+                packed, pairs = self.sharded_run(L, A, arrays, want_pairs=mode["want_pairs"])
             else:
-                prog = self.program(L, A, ids.shape[0], **mode)
-                packed, pairs = prog.run(*self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs))
+                packed, pairs = self.program(L, A, ids.shape[0], **mode).run(*arrays)
             yield nb, A, codes, lengths, ids, packed, pairs
 
     def count_batch(
@@ -635,11 +651,11 @@ class DeviceOverlapEngine:
             qdualrank, qselfrid = self.query_ranks(names)
             t1 = time.perf_counter()
             phases["prep"] = t1 - t0
-            # stage 1: enqueue every super-batch, one program replay each fed
-            # by asynchronous copies from pinned memory; nothing waits for
-            # the card until stage 2, so the host prepares the next
-            # super-batch while the card runs this one (the reference's
-            # device_engine.py:900-901)
+            # stage 1: enqueue every super-batch, one program replay each (on
+            # a sharded index the query program's and each shard's) fed by
+            # asynchronous copies; nothing waits for the card until stage
+            # 2, so the host prepares the next super-batch while the card
+            # runs this one (the reference's device_engine.py:900-901, :961)
             inflight = []
             for L in self.length_buckets:
                 if bucket_rows.get(L):

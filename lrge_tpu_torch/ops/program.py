@@ -2,18 +2,21 @@
 
 The reference compiles each super-batch pipeline once per bucket shape
 and mode (``jax.jit`` around ``sketch_map_many_core`` with static
-argnames, ``lrge_tpu/ops/overlap_jax.py:2001``), compiles the programs
-of a pass ahead of it (``warmup``, ``lrge_tpu/device_engine.py:709``)
-and dispatches each super-batch as one asynchronous call (:900-901).
+argnames, ``lrge_tpu/ops/overlap_jax.py:2001``; on a sharded index one
+``shard_map`` program a capacity, ``sharded_count_fn``,
+``lrge_tpu/parallel/sharded.py:237-455``), compiles the programs of a
+pass ahead of it (``warmup``, ``lrge_tpu/device_engine.py:709``) and
+dispatches each super-batch as one asynchronous call (:900-901, :961).
 Here a :class:`SuperBatchProgram` is one such pipeline, a function of
 static device input buffers over the engine's index planes and
 parameters, captured once as a CUDA graph: every super-batch is then
-one replay, fed by asynchronous copies from pinned host memory, with
-the hand-written chain DP (``chain_kernel.py``) inside the graph.
-Nothing in a run waits for the card.
+one replay, fed by asynchronous copies, with the hand-written chain DP
+(``chain_kernel.py``) inside the graph.  Nothing in a run waits for the
+card.
 
-The pipelines are the three single-device branches of the engine's
-dispatch (:func:`program_function`, keyed by :class:`ProgramKey`):
+The pipelines are the branches of the engine's dispatch
+(:func:`program_function`, keyed by :class:`ProgramKey`).  On one
+device:
 
 * ``"ont"``, one sub-index: ``sketch_map_many`` over 2-bit packed
   codes, in every mode the engine passes (plain, pairs, ``-F`` in
@@ -21,6 +24,24 @@ dispatch (:func:`program_function`, keyed by :class:`ProgramKey`):
 * ``"ont_multi"``, several sub-indexes: ``sketch_lookup_many`` over
   the unpacked codes, then ``map_subs``;
 * ``"pacbio"``: ``pb_map_many`` over the host-sketched planes.
+
+On a sharded index (``parallel/sharded.py``) a super-batch is one
+``"query"`` program on the home device and one ``"shard"`` program a
+shard, each on its shard's device (the key carries the shard's number,
+so two shards on one card get two programs):
+
+* ``"query"``: the query side, once a super-batch: under ONT the
+  sketch of the unpacked codes (the reference's ``sketch_many`` ahead
+  of ``_sharded_group``, ``lrge_tpu/device_engine.py:954-956``), then
+  ``query_keep``; under PacBio ``query_keep`` over the host planes.  It
+  returns the shard programs' int32 inputs over the flattened rows and
+  the minimizer counts;
+* ``"shard"``: one shard's work, ``shard_count`` (probe, ranges, the
+  ``occ <= mid_occ`` gate, ``map_found_core``), narrow or wide by the
+  shard's planes; its inputs are filled from the query program's
+  outputs (or a ring hop's plane) by copies outside the graph, since a
+  graph holds no copy between devices, and the merge of the shards'
+  results runs outside the graphs too (``sharded_count_programs``).
 
 A capture first runs the function once eagerly on a side stream (the
 chain DP's library is built and loaded, the allocator primed), then
@@ -32,10 +53,11 @@ static inputs and outputs, with an eager call in place of the replay.
 
 Every run returns clones of the static outputs: the engine keeps each
 super-batch's outputs until it collects them, and the next run
-overwrites the static ones.  The programs of one engine may share one
-graph memory pool, because their replays run one at a time on one
-stream, their static inputs lie outside the pool and every output is
-cloned right after its replay.
+overwrites the static ones.  The programs of one engine on one device
+may share one graph memory pool, because their replays run one at a
+time on that device's stream, their static inputs lie outside the pool
+and every output is cloned right after its replay; shards on different
+cards cannot share one.
 """
 
 from __future__ import annotations
@@ -47,17 +69,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.sharded import query_keep, shard_count
 from .chain_kernel import COUNTERS, add_launches, launch_counts, recorded_launches
 from .overlap import map_subs, minimizer_cap, pb_map_many, sketch_lookup_many, sketch_map_many
+from .sketch_torch import sketch_core
 
-BRANCHES = ("ont", "ont_multi", "pacbio")
+BRANCHES = ("ont", "ont_multi", "pacbio", "query", "shard")
 
 
 class ProgramKey(NamedTuple):
     """What one program is compiled for: the branch, the bucket's padded
     length ``L``, anchor capacity ``A``, batches ``SUP`` and rows ``B`` a
     batch, and the mode.  ``overhang_ratio`` and ``filter_mode`` are None
-    unless ``want_extents`` (``-F``) is set."""
+    unless ``want_extents`` (``-F``) is set; ``shard`` is the shard's
+    number on the ``"shard"`` branch, else None."""
 
     branch: str
     L: int
@@ -68,17 +93,25 @@ class ProgramKey(NamedTuple):
     want_extents: bool = False
     overhang_ratio: float | None = None
     filter_mode: str | None = None
+    shard: int | None = None
 
 
 def program_function(key: ProgramKey, gi, params, *, window: int):
     """``(fn, inputs)``: the super-batch function of ``key`` over the index
-    planes ``gi``, which returns the ``[SUP, B, 4]`` int32 plane and the
-    pair plane (or None), and its static inputs as ``(shape, dtype, fill)``
-    in argument order.  The fills are the padding of an empty row."""
+    planes ``gi`` (on the sharded branches a placed shard), and its static
+    inputs as ``(shape, dtype, fill)`` in argument order; the fills are
+    the padding of an empty row.  A single-device function returns the
+    ``[SUP, B, 4]`` int32 plane and the pair plane (or None); the
+    ``"query"`` and ``"shard"`` functions are :func:`_query_function`'s
+    and :func:`_shard_function`'s."""
     if key.branch not in BRANCHES:
         raise ValueError(f"unknown branch {key.branch!r}: expected one of {BRANCHES}")
     if key.want_extents and key.branch != "ont":
         raise ValueError("the -F extent filter runs in the single-sub ONT program only")
+    if key.branch == "query":
+        return _query_function(key, gi, params)
+    if key.branch == "shard":
+        return _shard_function(key, gi, params, window)
     A, W, pairs = key.A, window, key.want_pairs
     rows = (key.SUP, key.B)
     # lengths, dual ranks, self ranks
@@ -111,6 +144,69 @@ def program_function(key: ProgramKey, gi, params, *, window: int):
     planes = (*rows, minimizer_cap(key.L))
     return fn, [(planes, torch.int32, -1), (planes, torch.int32, 0), (planes, torch.int32, 0),
                 (rows, torch.int32, 0), *row_inputs]
+
+
+def _query_function(key: ProgramKey, gi, params):
+    """The query side of a sharded super-batch over ``R = SUP * B`` rows,
+    on the home device.  It takes what the single-device ``"ont_multi"``
+    (unpacked codes) or ``"pacbio"`` (host planes) program takes and
+    returns the shard programs' inputs, int32: ``(q0, q1, mps, keep, qlen,
+    qdual, qself)`` (``q0`` the narrow hash, its ``0xFFFFFFFF`` padding
+    wrapped to -1, and ``q1`` None; or the wide ``qhi``/``qlo``), then the
+    ``[R]`` minimizer counts.  ``gi`` gives ``mid_occ`` and ``wide``."""
+    p = params
+    R, M = key.SUP * key.B, minimizer_cap(key.L)
+    rows = (key.SUP, key.B)
+    row_inputs = [(rows, torch.int32, 0), (rows, torch.int32, 0), (rows, torch.int32, -1)]
+
+    def flat(*xs):
+        return tuple(x.reshape(R) for x in xs)
+
+    if not gi.wide:
+
+        def fn(codes, lengths, dual, selfr):
+            mhash, mpos, mstrand, mcount = sketch_core(
+                codes.reshape(R, key.L), lengths.reshape(R), k=p.k, w=p.w, max_minimizers=M
+            )
+            keep = query_keep(mhash, None, gi.mid_occ, p.q_occ_frac, False)
+            i32 = lambda x: x.to(torch.int32)
+            return i32(mhash), None, i32(mpos * 2 + mstrand), i32(keep), *flat(lengths, dual, selfr), i32(mcount)
+
+        return fn, [((*rows, key.L), torch.uint8, 4), *row_inputs]
+
+    def fn(qhi, qlo, mps, mcount, lengths, dual, selfr):
+        qhi, qlo, mps = (x.reshape(R, M) for x in (qhi, qlo, mps))
+        keep = query_keep(qhi.long(), qlo.long(), gi.mid_occ, p.q_occ_frac, True)
+        return qhi, qlo, mps, keep.to(torch.int32), *flat(lengths, dual, selfr, mcount)
+
+    planes = (*rows, M)
+    return fn, [(planes, torch.int32, -1), (planes, torch.int32, 0), (planes, torch.int32, 0),
+                (rows, torch.int32, 0), *row_inputs]
+
+
+def _shard_function(key: ProgramKey, gi, params, window: int):
+    """One shard's work over ``R = SUP * B`` rows on its own device
+    (``parallel/sharded.py::shard_count`` over the shard's planes ``gi``,
+    narrow or wide as they are).  It takes the int32 inputs that the query
+    program returns (``q1`` only under wide keys) and casts them here, in
+    the graph; it returns ``(counts, n_anchors, max_run)`` ``[R]`` int64
+    and the ``[R, min(A, PAIR_CAP)]`` int32 pair plane (or None)."""
+    R, M = key.SUP * key.B, minimizer_cap(key.L)
+    wide = gi.wide
+
+    def fn(q0, *rest):
+        q1, mps, keep, qlen, qdual, qself = rest if wide else (None, *rest)
+        # the narrow hash rides as int32: undo the wrap of its padding
+        q0 = q0.long() if wide else q0.long() & 0xFFFFFFFF
+        counts, n_anchors, max_run, pairs = shard_count(
+            gi, q0, None if q1 is None else q1.long(), mps.long(), qlen.long(), qdual.long(), qself.long(),
+            keep != 0, params, num_anchors=key.A, window=window, want_pairs=key.want_pairs,
+        )
+        return counts, n_anchors, max_run, None if pairs is None else pairs.to(torch.int32)
+
+    plane = lambda fill: ((R, M), torch.int32, fill)
+    return fn, [plane(-1), *([plane(0)] if wide else []), plane(0), plane(0),
+                ((R,), torch.int32, 0), ((R,), torch.int32, 0), ((R,), torch.int32, -1)]
 
 
 class SuperBatchProgram:
@@ -165,28 +261,29 @@ class SuperBatchProgram:
         self.graph = graph
         cls.captures += 1
 
-    def run(self, *arrays: np.ndarray) -> tuple:
-        """Copy one super-batch's host arrays (the inputs' shapes and
-        dtypes, in order) into the static inputs, run the program, and
-        return clones of its outputs.  On the card the copies go through
-        pinned memory without blocking and the replay is enqueued: no call
-        here waits for the card."""
+    def run(self, *arrays) -> tuple:
+        """Copy one super-batch's inputs (host arrays or tensors on any
+        device, of the inputs' shapes and dtypes, in order) into the static
+        inputs, run the program, and return clones of its outputs.  On the
+        card host arrays go through pinned memory without blocking, tensors
+        by device copies, and the replay is enqueued: no call here waits
+        for the card."""
         if len(arrays) != len(self.inputs):
             raise ValueError(f"program {self.key} takes {len(self.inputs)} arrays, got {len(arrays)}")
         on_card = self.graph is not None
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             for dst, a in zip(self.inputs, arrays):
-                src = torch.from_numpy(np.ascontiguousarray(a))
+                src = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
                 if src.shape != dst.shape or src.dtype != dst.dtype:
                     raise ValueError(
                         f"program {self.key}: got {src.dtype} {tuple(src.shape)}, "
                         f"expected {dst.dtype} {tuple(dst.shape)}"
                     )
-                if on_card:
+                if on_card and src.device.type == "cpu":
                     # the pinned block is not reused before this copy has run
                     dst.copy_(src.pin_memory(), non_blocking=True)
                 else:
-                    dst.copy_(src)
+                    dst.copy_(src, non_blocking=on_card)
             if on_card:
                 self.graph.replay()
                 add_launches(self.launches)

@@ -1,3 +1,3 @@
-from .sharded import ShardedGroupedIndex, query_keep, sharded_count
+from .sharded import ShardedGroupedIndex, query_keep, sharded_count, sharded_count_programs
 
-__all__ = ["ShardedGroupedIndex", "query_keep", "sharded_count"]
+__all__ = ["ShardedGroupedIndex", "query_keep", "sharded_count", "sharded_count_programs"]

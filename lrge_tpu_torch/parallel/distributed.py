@@ -10,10 +10,14 @@ dispatches and recomputes on the host only its contiguous slice of the
 queries.  Every process runs the same number of dispatches (one small
 all_gather agrees the per-bucket depth; short processes send empty
 blocks), and in each dispatch the query block and its accumulators
-ride a ring over the processes, one int32 plane a hop, visiting every
-local shard at each hop, until they are home again.  One last
-all_gather of the packed ``[2, width]`` count/had plane gives every
-process the global counts; rank 0 alone writes the result (``cli.py``).
+ride a ring over the processes, one int32 plane a hop, replaying every
+local shard's program (``ops/program.py``) at each hop, until they are
+home again.  The ring's hops and the merge run outside the programs.
+Every block's outputs stay on the card until the last dispatch, then
+each block is triaged (the reference's distributed.py:244-255).  One
+last all_gather of the packed ``[2, width]`` count/had plane gives
+every process the global counts; rank 0 alone writes the result
+(``cli.py``).
 
 Env contract, all three or none (``init_from_env``):
 
@@ -23,7 +27,9 @@ Env contract, all three or none (``init_from_env``):
 
 Gloo's point-to-point ops and collectives take CPU tensors: on a gloo
 group the planes go through host memory (pinned when they come from a
-card).  Two ranks on one card must use gloo: NCCL refuses a duplicate
+card), so every ring hop copies its plane to the host and waits for the
+card there (:func:`_staged`); on NCCL a hop waits on the card's stream
+alone.  Two ranks on one card must use gloo: NCCL refuses a duplicate
 GPU.
 """
 
@@ -40,7 +46,7 @@ import torch.distributed as dist
 
 from ..ops.encode import encode_seq
 from ..ops.overlap import minimizer_cap
-from .sharded import on_device, query_keep, sharded_count
+from .sharded import on_device, sharded_count_programs
 
 logger = logging.getLogger("lrge")
 
@@ -83,7 +89,8 @@ def process_slice(n: int, pid: int, nproc: int) -> tuple[int, int]:
 
 def _staged(x: torch.Tensor) -> torch.Tensor:
     """The tensor to communicate: on a gloo group a host copy (pinned when
-    ``x`` lies on a card), else ``x`` itself."""
+    ``x`` lies on a card; the copy waits for the card), else ``x``
+    itself."""
     if dist.get_backend() != "gloo" or x.device.type == "cpu":
         return x
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -114,37 +121,31 @@ def ring_shift(x: torch.Tensor) -> torch.Tensor:
     return recv.to(x.device, non_blocking=True)
 
 
-def ring_count(dev, q0, q1, mps, qlen, qdual, qself, *, num_anchors):
+def ring_count(programs, q0, q1, mps, keep, qlen, qdual, qself):
     """Counts of this process's block of ``[b]`` query rows against every
     shard of every process: the block and its accumulators ride the ring
-    for one full turn, visiting this process's shards at each hop
-    (:func:`~lrge_tpu_torch.parallel.sharded.sharded_count`), and come
-    home.  The riding state is one int32 plane a hop, ``[b, 3M + 7]``
-    (wide keys: ``[b, 4M + 6]``).  Returns ``(counts, n_anchors,
-    max_run)`` as numpy."""
-    p = dev.params
-    wide = dev.sharded.wide
+    for one full turn, replaying this process's shard ``programs`` at
+    each hop (:func:`~lrge_tpu_torch.parallel.sharded.
+    sharded_count_programs`), and come home.  The block is the query
+    program's int32 planes (``q1`` None under narrow keys); the riding
+    state is one int32 plane a hop, ``[b, 3M + 6]`` (wide keys: ``[b,
+    4M + 6]``), built and split outside the programs.  Returns ``(counts,
+    n_anchors, max_run)`` on the block's device, without waiting for
+    it."""
+    wide = q1 is not None
     with on_device(q0.device):
-        q0, q1, mps, qlen, qdual, qself = (x.long() for x in (q0, q1, mps, qlen, qdual, qself))
-        keep = query_keep(q0, q1, dev.sharded.mid_occ, p.q_occ_frac, wide)
         counts, n_anchors, max_run = (torch.zeros(q0.shape[0], dtype=torch.int64, device=q0.device) for _ in range(3))
         for _hop in range(dist.get_world_size()):
-            c, a, r, _ = sharded_count(
-                dev.shards, q0, q1, mps, qlen, qdual, qself, p, num_anchors=num_anchors, window=dev.window,
-                keep=keep,
-            )
+            c, a, r, _ = sharded_count_programs(programs, q0, q1, mps, keep, qlen, qdual, qself)
             counts, n_anchors, max_run = counts + c, torch.maximum(n_anchors, a), torch.maximum(max_run, r)
-            cols = [q0, q1, mps, keep.long(), *(x[:, None] for x in (qlen, qdual, qself, counts, n_anchors, max_run))]
-            widths = [x.shape[1] for x in cols]
-            # the narrow hash's 0xFFFFFFFF padding wraps to -1 in int32
-            state = ring_shift(torch.cat(cols, dim=1).to(torch.int32)).long()
-            q0, q1, mps, keep, qlen, qdual, qself, counts, n_anchors, max_run = torch.split(state, widths, dim=1)
-            q0 = q0 if wide else q0 & 0xFFFFFFFF
-            keep = keep != 0
-            qlen, qdual, qself, counts, n_anchors, max_run = (
-                x[:, 0] for x in (qlen, qdual, qself, counts, n_anchors, max_run)
-            )
-        return tuple(x.cpu().numpy() for x in (counts, n_anchors, max_run))
+            planes = [q0, *([q1] if wide else []), mps, keep]
+            cols = [*planes, *(x[:, None].to(torch.int32) for x in (qlen, qdual, qself, counts, n_anchors, max_run))]
+            state = torch.split(ring_shift(torch.cat(cols, dim=1)), [x.shape[1] for x in cols], dim=1)
+            planes, scalars = state[: len(planes)], [x[:, 0] for x in state[len(planes) :]]
+            q0, q1, mps, keep = planes if wide else (planes[0], None, *planes[1:])
+            qlen, qdual, qself = scalars[:3]
+            counts, n_anchors, max_run = (x.long() for x in scalars[3:])
+        return counts, n_anchors, max_run
 
 
 def multihost_count_batch(dev, names: list, seqs: list):
@@ -157,8 +158,12 @@ def multihost_count_batch(dev, names: list, seqs: list):
     (:func:`process_slice`), planned as ``count_batch`` plans
     (``plan_rows``: long-tail and sparse rows and the host share to the
     host, the rest by length bucket), one block of ``batch_size /
-    nproc`` rows a dispatch.  Returns a ``BatchCounts`` with the global
-    counts, the same on every process."""
+    nproc`` rows a dispatch: the engine's query program, then the ring
+    over its shard programs (:func:`ring_count`; every bucket's programs
+    are captured before the first dispatch, so no capture, which waits
+    for the card, stalls the ring).  Every block stays in flight on the
+    card until the last dispatch; the triage follows.  Returns a
+    ``BatchCounts`` with the global counts, the same on every process."""
     from ..device_engine import BatchCounts
 
     t0 = time.perf_counter()
@@ -183,6 +188,14 @@ def multihost_count_batch(dev, names: list, seqs: list):
         "lockstep count: process %d/%d, rows [%d, %d), %d dispatches of %d rows, %d ring hops each",
         pid, nproc, s, e, int(n_disp.sum()), b_loc, nproc,
     )
+    t_cap = time.perf_counter()
+    for bi, L in enumerate(buckets):
+        if n_disp[bi]:
+            dev.shard_programs(L, dev.bucket_shape(L)[0], 1, b_loc)
+    logger.debug(
+        "lockstep count: process %d/%d, every bucket's programs ready in %.3f s, before the first dispatch",
+        pid, nproc, time.perf_counter() - t_cap,
+    )
     # the long tail and the host share run on the host meanwhile
     host_rows_all = long_rows + host_share_rows
     pool = ThreadPoolExecutor(1) if host_rows_all else None
@@ -191,7 +204,7 @@ def multihost_count_batch(dev, names: list, seqs: list):
     )
     try:
         qdualrank, qselfrid = dev.query_ranks(names)
-        retry = []
+        inflight = []
         for bi, L in enumerate(buckets):
             A = dev.bucket_shape(L)[0]
             rows_b = bucket_rows.get(L, [])
@@ -199,26 +212,33 @@ def multihost_count_batch(dev, names: list, seqs: list):
                 block = rows_b[d * b_loc : (d + 1) * b_loc]
                 ids = np.full((1, b_loc), -1, dtype=np.int64)
                 ids[0, : len(block)] = block
-                live = ids[0] >= 0
+                live = ids >= 0
                 lengths = np.array([[len(seqs[i]) if i >= 0 else 0 for i in ids[0]]], dtype=np.int32)
                 codes = None
                 if not dev.pb_mode:
                     codes = np.full((1, b_loc, L), 4, dtype=np.uint8)
                     for r, i in enumerate(block):
                         codes[0, r, : lengths[0, r]] = encode_seq(seqs[i])
-                q0, q1, mps, mcount = dev.query_planes(codes, lengths, ids, seqs, L)
-                dual = np.where(live, qdualrank[ids[0]], 0)
-                selfr = np.where(live, qselfrid[ids[0]], -1)
-                put = lambda a: torch.from_numpy(a).to(dev.device)
-                c, a, r = ring_count(dev, q0, q1, mps, put(lengths[0]), put(dual), put(selfr), num_anchors=A)
-                needs = dev.triage_flags(
-                    live, a, A, r, mcount.cpu().numpy(), minimizer_cap(L),
-                    None if codes is None else codes[0], lengths[0],
-                )
-                retry.extend(ids[0][needs].tolist())
-                ok = live & ~needs
-                counts[ids[0][ok]] = c[ok]
-                had[ids[0][ok]] = c[ok] > 0
+                dual = np.where(live, qdualrank[ids], 0).astype(np.int32)
+                selfr = np.where(live, qselfrid[ids], -1).astype(np.int32)
+                query, shards = dev.shard_programs(L, A, 1, b_loc)
+                *planes, mcount = query.run(*dev.program_arrays(L, codes, lengths, ids, dual, selfr, seqs))
+                inflight.append((ids[0], L, A, codes, lengths[0], mcount, ring_count(shards, *planes)))
+        logger.debug(
+            "lockstep count: process %d/%d, %d blocks in flight, triaged after the last dispatch",
+            pid, nproc, len(inflight),
+        )
+        retry = []
+        for ids, L, A, codes, lengths, mcount, outs in inflight:
+            c, a, r, mc = (x.cpu().numpy() for x in (*outs, mcount))
+            live = ids >= 0
+            needs = dev.triage_flags(
+                live, a, A, r, mc, minimizer_cap(L), None if codes is None else codes[0], lengths,
+            )
+            retry.extend(ids[needs].tolist())
+            ok = live & ~needs
+            counts[ids[ok]] = c[ok]
+            had[ids[ok]] = c[ok] > 0
         # exact host recompute of this process's flagged rows
         for i, (cn, h) in zip(retry, dev._host_count_many([(names[i], seqs[i]) for i in retry])):
             counts[i], had[i] = cn, h

@@ -9,15 +9,19 @@ holds only its shard.  The occurrence cutoff (``mid_occ``) and every
 packing decision come from the global index, before the split, so the
 per-shard counts add up to the single-device engine's exactly.
 
-Every query visits every shard (:func:`sharded_count`): the query-side
-filters are computed once, then each shard, on its own device, looks
-its keys up, expands, sorts, runs the CUDA chain DP (``BASE`` on narrow
-ONT shards, ``SPAN`` on wide PacBio ones, through
-``ops/chain_kernel.py::chain_dp_skip``) and reduces.  The merge is the
-reference's all_gather reduce (sharded.py:406-415): counts summed (a
-target lives on one shard), ``n_anchors`` and ``max_run`` maxed, pair
-planes concatenated.  Across processes the query block rides a ring
-instead (``parallel/distributed.py``).
+Every query visits every shard: the query-side filters are computed
+once, then each shard, on its own device, looks its keys up, expands,
+sorts, runs the CUDA chain DP (``BASE`` on narrow ONT shards, ``SPAN``
+on wide PacBio ones, through ``ops/chain_kernel.py::chain_dp_skip``) and
+reduces (:func:`shard_count`).  The merge is the reference's all_gather
+reduce (sharded.py:406-415): counts summed (a target lives on one
+shard), ``n_anchors`` and ``max_run`` maxed, pair planes concatenated
+(:func:`merge_shards`).  The engine runs each shard's work as a
+program, a CUDA graph a (shard, bucket, mode) on the shard's device
+(``ops/program.py``, :func:`sharded_count_programs`), the counterpart of
+the reference's jitted ``sharded_count_fn``; :func:`sharded_count`, the
+same work as eager calls, is its plain version.  Across processes the
+query block rides a ring instead (``parallel/distributed.py``).
 
 The reference pads every shard to common shapes so one compiled program
 serves them all; here each shard keeps its own lengths (at least one
@@ -251,7 +255,26 @@ def sharded_count(shards, q0, q1, mps, qlen, qdual, qself, params, *, num_anchor
         with on_device(dev):
             args = (x.to(dev, non_blocking=True) for x in (q0, q1, mps, qlen, qdual, qself, keep))
             outs.append(shard_count(gi, *args, p, num_anchors=num_anchors, window=window, want_pairs=want_pairs))
-    home = q0.device
+    return merge_shards(outs, q0.device)
+
+
+def merge_shards(outs, home: torch.device):
+    """The shards' ``(counts, n_anchors, max_run, pairs)`` merged on
+    ``home`` (the reference's all_gather reduce): counts summed,
+    ``n_anchors`` and ``max_run`` maxed, the pair planes side by side
+    (None when the shards returned none)."""
     counts, n_anchors, max_run = (torch.stack([o[j].to(home) for o in outs]) for j in range(3))
-    pairs = torch.cat([o[3].to(home) for o in outs], dim=-1) if want_pairs else None
+    pairs = None if outs[0][3] is None else torch.cat([o[3].to(home) for o in outs], dim=-1)
     return counts.sum(0), n_anchors.amax(0), max_run.amax(0), pairs
+
+
+def sharded_count_programs(programs, q0, q1, mps, keep, qlen, qdual, qself):
+    """:func:`sharded_count` through the shards' programs (``ops/program.py``,
+    branch ``"shard"``, one a shard, each on its shard's device): the
+    int32 query planes (the ``"query"`` program's outputs, or a ring hop's
+    plane; ``q1`` None under narrow keys) are copied into each program's
+    static inputs without blocking and every program runs before any
+    result moves back; the merge (:func:`merge_shards`) runs on ``q0``'s
+    device, outside the graphs."""
+    planes = [x for x in (q0, q1, mps, keep, qlen, qdual, qself) if x is not None]
+    return merge_shards([prog.run(*planes) for prog in programs], q0.device)

@@ -6,7 +6,9 @@ Each process runs the port's CLI with four CPU devices, joined by
 
 * the forward two-set path shards the index over both processes' eight
   devices (data = 2 processes, index = 4 devices each) and counts in
-  lockstep, the query blocks riding a ring over the processes;
+  lockstep, the query blocks riding a ring over the processes through
+  each process's shard programs, every block triaged after the last
+  dispatch;
 * the all-vs-all path runs replicated, each process sharding over its
   own four devices.
 
@@ -96,6 +98,8 @@ def test_two_process_cli_equals_host(reads, tmp_path):
     assert not out1.exists()
     for log in logs:
         assert "sharded over 8 devices (2x4)" in log and "lockstep count: process" in log
+        # every block stays in flight until the last dispatch, then is triaged
+        assert "blocks in flight, triaged after the last dispatch" in log
 
 
 def test_two_process_ava_replicated_equals_host(reads, tmp_path):

@@ -7,7 +7,10 @@ every kernel instance.  On a CUDA card (marker ``gpu``; skipped without
 one): each variant equals its plain version bit for bit at every
 window and on rows of the largest bucket's length, and the device
 engine's counts equal the exact host engine's (ONT and PacBio, one
-sub-index and several, and a sharded index on the card twice).  On the card:
+sub-index and several, and a sharded index on the card twice), and the
+super-batch programs, single-device and sharded, replay what their eager
+functions compute; a capture that fails raises, naming its program.  On
+the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernel.py
 """
@@ -360,6 +363,8 @@ def test_sharded_engine_on_card_matches_single_device():
         one = DeviceOverlapEngine(index, device=card, **kw).count_batch(qnames, queries)
         dev = DeviceOverlapEngine(index, device=[card, card], **kw)
         assert len(dev.shards) == 2 and all(gi.uhash.device.type == "cuda" for gi in dev.shards)
+        # capture the pass's programs first: the pass then launches by replay alone
+        dev.warmup([len(q) for q in queries])
         before = getattr(chain_dp_skip, counter)
         res = dev.count_batch(qnames, queries)
         # 40 rows: 3 batches of 16, one super-batch, one launch a shard
@@ -435,3 +440,87 @@ def test_programs_on_card_match_eager():
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert len(inflight) == len(batches)
+
+
+def sharded_reads():
+    """48 queries of 600-2,000 bp and 80 targets of 1.5-2.5 kb at 3%
+    substitutions, from one 100 kb genome (seeded)."""
+    rng = np.random.default_rng(2024)
+    genome = rng.choice(list(b"ACGT"), size=100_000).astype(np.uint8).tobytes()
+
+    def reads(n, lo, hi):
+        out = []
+        for length in rng.integers(lo, hi, n):
+            pos = int(rng.integers(0, len(genome) - length))
+            s = np.frombuffer(genome[pos : pos + length], np.uint8).copy()
+            hit = rng.random(length) < 0.03
+            s[hit] = rng.choice(list(b"ACGT"), size=int(hit.sum()))
+            out.append(s.tobytes())
+        return out
+
+    return reads(80, 1500, 2500), [b"t%d" % i for i in range(80)], reads(48, 600, 2000), [b"q%d" % i for i in range(48)]
+
+
+@pytest.mark.gpu
+def test_shard_programs_on_card_match_eager():
+    # two shards on the one card, ONT and PacBio: the query program and one
+    # shard program a shard (CUDA graphs) on two super-batches, run before
+    # either output is read, each merged plane and pair plane bit-equal to
+    # the eager sharded_count on the query function's planes; a super-batch
+    # adds one launch a shard; a warm pass's stage 1 enqueues without
+    # syncing the host
+    need_cuda()
+    from lrge_tpu_torch.ops.chain_kernel import launch_counts
+    from lrge_tpu_torch.parallel import sharded_count
+
+    targets, tnames, queries, qnames = sharded_reads()
+    card = torch.device("cuda", 0)
+    for platform, counter in ((Platform.NANOPORE, "launches"), (Platform.PACBIO, "span_launches")):
+        index = build_index(targets, tnames, preset_for(platform, dual=True))
+        dev = DeviceOverlapEngine(index, device=[card, card], batch_size=8, length_buckets=(2048,), super_batch=1)
+        _, _, bucket_rows = dev.plan_rows(queries, range(48))
+        dual, selfr = dev.query_ranks(qnames)
+        batches = list(dev.super_batches(2048, bucket_rows[2048], queries, dual, selfr))
+        assert len(batches) >= 2
+        runs = []
+        for _, A, codes, lengths, ids, d, s in batches[:2]:
+            query, shards = dev.shard_programs(2048, A, *ids.shape, want_pairs=True)
+            assert query.graph is not None and all(p.graph is not None for p in shards)
+            assert [p.key.shard for p in shards] == [0, 1] and all(p.launches[counter] == 1 for p in shards)
+            arrays = dev.program_arrays(2048, codes, lengths, ids, d, s, queries)
+            before = launch_counts()
+            runs.append((A, arrays, dev.sharded_run(2048, A, arrays, want_pairs=True)))
+            assert launch_counts()[counter] == before[counter] + 2
+        for A, arrays, (packed, pairs) in runs:
+            q0, q1, mps, keep, qlen, qdual, qself, mcount = query.fn(*(torch.from_numpy(a).to(card) for a in arrays))
+            q0 = q0.long() if dev.sharded.wide else q0.long() & 0xFFFFFFFF
+            q1 = torch.zeros_like(q0[:, :1]) if q1 is None else q1
+            counts, n_anchors, max_run, want_pairs = sharded_count(
+                dev.shards, q0, q1, mps, qlen, qdual, qself, dev.params, num_anchors=A, window=dev.window,
+                want_pairs=True, keep=keep != 0,
+            )
+            want = torch.stack([counts, n_anchors, max_run, mcount.long()], dim=-1).to(torch.int32)
+            assert torch.equal(packed.reshape(-1, 4), want), platform
+            assert torch.equal(pairs.reshape(want_pairs.shape).long(), want_pairs), platform
+        assert not torch.equal(runs[0][2][0], runs[1][2][0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mode = dict(want_pairs=True, want_extents=False, overhang_ratio=0.2, filter_mode="internal")
+            inflight = list(dev._dispatch(2048, bucket_rows[2048], queries, dual, selfr, **mode))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(inflight) == len(batches)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_naming_its_program():
+    # a function that syncs the host (a boolean mask's nonzero) cannot be
+    # captured: the program raises, naming its key, and nothing runs eagerly
+    # in its place
+    need_cuda()
+    from lrge_tpu_torch.ops.program import ProgramKey, SuperBatchProgram
+
+    key = ProgramKey("shard", 8, 8, 1, 2, shard=1)
+    with pytest.raises(RuntimeError, match=r"capture of the super-batch program ProgramKey\(branch='shard'.*shard=1"):
+        SuperBatchProgram(key, lambda x: (x[x > 0].sum(),), [((1, 2), torch.int32, 1)], torch.device("cuda", 0))

@@ -102,7 +102,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    phase 8's indexes: the first two super-batches of the fullest bucket
    through the query program and each shard's, each merged plane held
    bit for bit to the eager ``sharded_count``, each program's replay ms,
-   and phase 10's ONT stage 1 under ``set_sync_debug_mode("error")``.
+   and phase 10's ONT stage 1 under ``set_sync_debug_mode("error")``;
+13. the port's benchmark (``lrge_tpu_torch/bench.py``, bench.py's
+   corpus and engine shape at their defaults): its JSON line, with its
+   tripwires (eager counts equal programmed ones, the heterogeneous
+   counts the device-only ones, 200 sampled rows the host engine's) and
+   ``BASE`` launched once a super-batch in each of its programmed,
+   eager and heterogeneous passes; then the host-share sweep on its
+   engine: ``LRGE_HOST_SHARE`` at 0, 0.1, 0.2, 0.3 and 0.5 in turns,
+   three rounds, every pass's counts equal, with each share's median
+   q/s and spread, host-share rows and host thread against device
+   seconds, and ``r = s / (c (1 - s))`` for the best share ``s`` on
+   ``c`` host cores.
 
 Each CLI run runs with ``--engine auto``, must log the device engine,
 and must launch the kernel variant of its path, and each engine pass
@@ -112,7 +123,8 @@ replays), plus the eager run before each capture of a program first
 used inside the pass; a run prints that split.  Each phase prints
 its wall time.  The line before the last is the kernels' JSON record
 (the main variant's also carries phase 9's case and CLI launches under
-``multi_sub_path``, phase 11's library runs' under ``library_path``, and
+``multi_sub_path``, phase 11's library runs' under ``library_path``,
+phase 13's under ``bench_path``, and
 it and the span variant phase 10's engine launches under
 ``sharded_path``); the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits 1 and prints no result.
@@ -149,6 +161,8 @@ SHARD_AVA_READS = 5_000  # phase 10's all-vs-all rows (the first of phase 7's su
 AVA_LIB_READS = 5_000  # phase 11's all-vs-all library run: the first reads of phase 7's corpus
 RANK_TIMEOUT = 600  # seconds a rank of phase 10's two-process run may take
 SAMPLE = 300  # rows held against the host per pass
+SHARES = (0.0, 0.1, 0.2, 0.3, 0.5)  # phase 13's host shares
+SWEEP_ROUNDS = 3  # phase 13's passes a share
 KW = dict(span=15, max_gap=5000, bw=500, max_skip=25)
 PEN_GAP = 0.01 * 15  # the synthetic cases' gap penalty (the main path's is the preset's)
 IMAX = np.iinfo(np.int32).max
@@ -1317,6 +1331,70 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
           f"{json.dumps({k: round(v, 6) for k, v in rec['phases'].items()})} ({gpu_line})", flush=True)
 
 
+def bench_paths(ck, dev, gpu_line):
+    """Phase 13: the port's benchmark (``lrge_tpu_torch/bench.py``) at its
+    default size on the card, then the host-share sweep on its engine.
+    The bench's tripwires hold (eager counts equal programmed ones, the
+    heterogeneous counts the device-only ones, 200 sampled rows the host
+    engine's); each of its three schedules (programmed device-only, eager
+    device-only, heterogeneous) launches ``BASE`` once a super-batch (no
+    capture inside a pass).  The sweep runs the heterogeneous pass at
+    every share of ``SHARES``, in turns (forward, backward, forward), and
+    prints per share the median q/s and its spread, the host-share rows,
+    and the host thread's seconds against the device's (``enqueue`` +
+    ``collect``); every pass's counts must equal the device-only ones.
+    Returns the bench's ``BASE`` launches (counts set to 0 just before
+    it, read just after) and by schedule."""
+    from lrge_tpu_torch import bench
+
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    run = bench.run(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts(ck)
+    rec, ex = run.record, run.record["extra"]
+    print(f"[bench] {json.dumps(rec)}", flush=True)
+    engine, names, seqs = run.engine, run.corpus.qnames, run.corpus.queries
+    if engine.device != dev or not engine.graphs:
+        fail("[bench] the bench did not run the programmed engine on the card")
+    with bench.host_share("0"):
+        want_dev = super_batch_count(engine, seqs)
+    with bench.host_share(None):
+        want_het = super_batch_count(engine, seqs)
+    by_schedule = {"programmed": ex["device_only_chain_dp_launches"], "eager": ex["ab_eager_chain_dp_launches"],
+                   "heterogeneous": ex["chain_dp_launches"]}
+    want = {"programmed": want_dev, "eager": want_dev, "heterogeneous": want_het}
+    if by_schedule != want or counts["main"] <= 0:
+        fail(f"[bench] BASE launches by schedule {by_schedule}, want one a super-batch {want}; all {counts}")
+    print(f"[bench] wall {wall:.1f} s; BASE launches {counts['main']} in all, one a super-batch in each pass "
+          f"{json.dumps(by_schedule)} ({gpu_line})", flush=True)
+
+    # the host-share sweep on the same engine
+    passes = {s: [] for s in SHARES}
+    for rnd in range(SWEEP_ROUNDS):
+        for s in SHARES if rnd % 2 == 0 else SHARES[::-1]:
+            with bench.host_share(str(s)):
+                ps = bench.timed_pass(engine, names, seqs)
+            if not np.array_equal(ps.result.counts, run.counts):
+                fail(f"[sweep] share {s}: counts != the device-only counts")
+            passes[s].append(ps)
+    medians = {}
+    for s, ps in passes.items():
+        qps = [len(seqs) / p.seconds for p in ps]
+        medians[s] = float(np.median(qps))
+        host_s = [p.host_s for p in ps]
+        dev_s = [p.phases["enqueue"] + p.phases["collect"] for p in ps]
+        print(f"[sweep] LRGE_HOST_SHARE={s}: median {medians[s]:.1f} q/s, spread {max(qps) - min(qps):.1f} "
+              f"(passes {', '.join(f'{q:.1f}' for q in qps)}), host-share rows "
+              f"{ps[0].triggers.get('host_share', 0)}, host thread s {', '.join(f'{x:.4f}' for x in host_s)} "
+              f"against device s {', '.join(f'{x:.4f}' for x in dev_s)} ({gpu_line})", flush=True)
+    best = max(SHARES, key=medians.get)
+    c = os.cpu_count() or 2
+    print(f"[sweep] best share {best} on {c} host cores: r = s / (c (1 - s)) = {best / (c * (1 - best)):.6f}; "
+          f"the engine's r {ex['host_share_ratio']} ({gpu_line})", flush=True)
+    return dict(launches=counts["main"], **by_schedule)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pb-ava-reads", type=int, default=PB_AVA_READS,
@@ -1372,6 +1450,9 @@ def main(argv=None) -> int:
         phase_done("phase 11, library surface")
         graph_paths(dev, gpu_line, ont_single, pb_single, acc_multi)
         phase_done("phase 12, super-batch programs")
+        del ont_single, pb_single, acc_multi
+        bench_launches = bench_paths(ck, dev, gpu_line)
+        phase_done("phase 13, bench and host-share sweep")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     def timing(m):
@@ -1390,7 +1471,7 @@ def main(argv=None) -> int:
     kernels = [dict(record("chain_dp_skip", recs, launches),
                     multi_sub_path=dict(launches=acc_launches, **timing(recs["accurate_path"])),
                     sharded_path=dict(launches=sharded_launches["main"], shards=SHARDS),
-                    library_path=lib_launches),
+                    library_path=lib_launches, bench_path=bench_launches),
                dict(record("chain_dp_skip_ext", recs_ext, ext_launches),
                     also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
                dict(record("chain_dp_skip_span", recs_span, span_launches),

@@ -128,6 +128,18 @@ def strategy_engine(index: TargetIndex, **kw) -> "DeviceOverlapEngine":
     return DeviceOverlapEngine(index, local_only=is_multihost(), **kw)
 
 
+# the per-core host rate over the device rate, as calibrated on the card
+# (``LRGE_HOST_RATE_RATIO`` overrides it); see
+# :meth:`DeviceOverlapEngine._host_share_fraction`
+HOST_RATE_RATIO = 0.0
+
+
+def host_rate_ratio() -> float:
+    """``r`` of the host share: ``LRGE_HOST_RATE_RATIO``, else
+    :data:`HOST_RATE_RATIO`."""
+    return float(os.environ.get("LRGE_HOST_RATE_RATIO", HOST_RATE_RATIO))
+
+
 def _has_native_count() -> bool:
     return native is not None and hasattr(native, "count_many")
 
@@ -160,12 +172,16 @@ class DeviceOverlapEngine:
         length_buckets: tuple = LENGTH_BUCKETS,
         super_batch: int = 4,
         local_only: bool = False,
+        graphs: bool = True,
     ):
         """``device``: one ``torch.device`` or a list to shard the index
         over (:func:`shard_plan`; default every visible CUDA device).
         ``local_only``: under a multi-process launch, shard over this
         process's devices alone and run replicated (the ava, ``-F`` and
-        ``--use-min-ref`` paths, whose schedules are not lockstep)."""
+        ``--use-min-ref`` paths, whose schedules are not lockstep).
+        ``graphs=False`` runs every super-batch program as an eager call
+        on the card instead of a CUDA graph replay (the benchmark's A/B,
+        the counterpart of the reference's ``LRGE_NO_FUSED``)."""
         # shape knobs, read as the reference reads them (device_engine.py:167-174)
         batch_size = int(os.environ.get("LRGE_DEVICE_BATCH", batch_size))
         num_anchors = int(os.environ.get("LRGE_DEVICE_ANCHORS", num_anchors))
@@ -184,6 +200,7 @@ class DeviceOverlapEngine:
         self.window = window
         self.length_buckets = tuple(sorted(length_buckets))
         self.super_batch = super_batch
+        self.graphs = graphs
         self.fallback_triggers = Counter()  # why rows went to the host
         # PacBio/HPC preset: 2k = 38-bit keys (two int32 planes on the
         # device) and per-minimizer spans; queries are sketched on the
@@ -360,18 +377,29 @@ class DeviceOverlapEngine:
     def _host_share_fraction(self, n_dev_rows: int, pairs_wanted: bool = False) -> float:
         """Fraction of device-eligible rows handed to the concurrent host
         engine, ``c*r / (c*r + 1)`` for ``c`` host cores and ``r`` the
-        per-core host rate over the device rate.  ``r`` defaults to 0
-        until it is calibrated on the card (``LRGE_HOST_RATE_RATIO``;
+        per-core host rate over the device rate (:func:`host_rate_ratio`;
         ``LRGE_HOST_SHARE`` sets the share directly).  Pair collection
         without the native pairs kernel takes no share: its rows would
-        fall to the slow ``map_read`` recovery."""
+        fall to the slow ``map_read`` recovery.
+
+        ``r`` is 0 by default, as calibrated on an NVIDIA H100 80GB HBM3
+        at a 700.00 W power limit with 8 host cores (``chip_smoke.py``
+        phase 13: the benchmark's corpus, 5,000 queries against 10,000
+        targets, three passes a share in turns; three runs): the median
+        q/s at share 0 were 38,403.2, 42,936.3 and 41,383.9; at 0.1
+        33,197.7, 38,921.8 and 36,279.5; at 0.2 31,661.4, 35,239.2 and
+        31,517.1; at 0.3 25,645.3, 30,411.0 and 27,896.2; at 0.5
+        20,091.0, 23,085.5 and 20,311.2.  Share 0 wins every run: the
+        host rows run on the cores that batch the super-batches, and
+        the device side slows more than the host rows save.  (The
+        reference's 0.30 was calibrated on a TPU v5e.)"""
         if "LRGE_HOST_SHARE" in os.environ:
             share = float(os.environ["LRGE_HOST_SHARE"])
         elif not _has_native_count():
             share = 0.0
         else:
             c = os.cpu_count() or 2
-            r = float(os.environ.get("LRGE_HOST_RATE_RATIO", "0"))
+            r = host_rate_ratio()
             share = min(0.9, c * r / (c * r + 1.0))
         if pairs_wanted and not _has_native_count():
             share = 0.0
@@ -514,7 +542,8 @@ class DeviceOverlapEngine:
 
     def _program(self, key: ProgramKey, gi, device: torch.device) -> SuperBatchProgram:
         """The program of ``key`` over the planes ``gi`` on ``device``,
-        captured at first use (on the card into the device's graph pool)
+        captured at first use (on the card into the device's graph pool;
+        an eager call there when the engine was built ``graphs=False``)
         and cached.  The cache and the pools are dropped when ``gdev`` or
         ``shards`` change: a graph holds the planes' addresses."""
         planes = (self.gdev, *self.shards)
@@ -523,12 +552,12 @@ class DeviceOverlapEngine:
         prog = self.programs.get(key)
         if prog is None:
             pool = None
-            if device.type == "cuda":
+            if device.type == "cuda" and self.graphs:
                 pool = self._graph_pools.get(device)
                 if pool is None:
                     pool = self._graph_pools[device] = torch.cuda.graph_pool_handle()
             fn, inputs = program_function(key, gi, self.params, window=self.window)
-            prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, device, pool=pool)
+            prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, device, pool=pool, graph=self.graphs)
         return prog
 
     def program_arrays(self, L, codes, lengths, ids, dual, selfr, seqs) -> tuple:
@@ -600,13 +629,17 @@ class DeviceOverlapEngine:
         ``last_phases``, seconds by stage: ``prep`` (row plan, ranks),
         ``enqueue`` (stage 1), ``collect`` with one ``collect_L{L}`` a
         bucket (stage 2), ``retry`` (stage 3 and the host rows).  A call
-        without device planes leaves ``last_phases`` as it was."""
+        without device planes leaves ``last_phases`` as it was.
+        ``last_host_s`` is the seconds that the host thread spent counting
+        the long-read and host-share rows beside the device (0 when it
+        had none)."""
         t0 = time.perf_counter()
         n = len(seqs)
         counts = np.zeros(n, dtype=np.int32)
         had = np.zeros(n, dtype=bool)
         self.last_anchors_valid = 0
         self.last_anchor_slots = 0
+        self.last_host_s = 0.0
         if filter_ratio is not None:
             if self.device_ok and not self.supports_device_filter():
                 raise ValueError("-F cannot run on the device for this index (supports_device_filter)")
@@ -640,9 +673,15 @@ class DeviceOverlapEngine:
         # long-tail and host-share reads run on the host concurrently with
         # the device (the native kernel releases the GIL)
         host_rows_all = long_rows + host_share_rows
+
+        def host_thread(items):
+            t = time.perf_counter()
+            out = host_fn(items)
+            return out, time.perf_counter() - t
+
         pool = ThreadPoolExecutor(1) if host_rows_all else None
         host_future = (
-            pool.submit(host_fn, [(names[i], seqs[i]) for i in host_rows_all])
+            pool.submit(host_thread, [(names[i], seqs[i]) for i in host_rows_all])
             if pool is not None
             else None
         )
@@ -704,7 +743,8 @@ class DeviceOverlapEngine:
             take_host(retry, host_fn([(names[i], seqs[i]) for i in retry]))
             fallback = len(retry)
             if host_future is not None:
-                take_host(host_rows_all, host_future.result())
+                host_res, self.last_host_s = host_future.result()
+                take_host(host_rows_all, host_res)
                 share_set = set(host_share_rows)
                 for i in host_rows_all:
                     if i in share_set:

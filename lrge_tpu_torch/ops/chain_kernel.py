@@ -111,10 +111,15 @@ def _nvcc() -> str:
     return found
 
 
+def library_path() -> Path:
+    """Where :func:`build_library` puts the library of this source and flags."""
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD / f"chain_dp-{digest}.so"
+
+
 def build_library() -> Path:
     """Compile ``csrc/chain_dp.cu`` (once per source hash) and return the .so path."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD / f"chain_dp-{digest}.so"
+    so = library_path()
     if so.exists():
         return so
     _BUILD.mkdir(parents=True, exist_ok=True)
@@ -303,6 +308,21 @@ def chain_dp_skip_plain(
     if extents and spans:
         raise ValueError("the -F extent carries are constant-span only")
     B, A = key2.shape
+    live = nvalid > 0
+    if B and not bool(live.all()):
+        # a row without anchors keeps the initial outputs (f NEG, the rest
+        # 0): step the other rows alone
+        rows = live.nonzero()[:, 0]
+        sub = chain_dp_skip_plain(
+            key2[rows], rpos[rows], qpos[rows], valid[rows], nvalid[rows], pen_gap, span=span,
+            max_gap=max_gap, bw=bw, max_skip=max_skip, window=window, extents=extents, spans=spans,
+        )
+        outs = []
+        for j, x in enumerate(sub):
+            full = torch.full((B, A), NEG if j == 0 else 0, dtype=torch.int32, device=key2.device)
+            full[rows] = x
+            outs.append(full)
+        return tuple(outs)
     W = window
     dev = key2.device
     i64 = dict(dtype=torch.int64, device=dev)

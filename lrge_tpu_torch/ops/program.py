@@ -48,8 +48,11 @@ chain DP's library is built and loaded, the allocator primed), then
 records it with ``capture_error_mode="thread_local"``, because the
 engine's host thread may be running native code meanwhile.  A failed
 capture raises, naming the key; there is no eager fallback on the card.
-On a CPU device (the tests) the program keeps the same discipline of
-static inputs and outputs, with an eager call in place of the replay.
+On a CPU device (the tests), and on the card when built with
+``graph=False`` (the benchmark's eager side of its A/B, the counterpart
+of the reference's ``LRGE_NO_FUSED``), the program keeps the same
+discipline of static inputs and outputs, with an eager call in place of
+the replay; on the card that call still launches the CUDA chain DP.
 
 Every run returns clones of the static outputs: the engine keeps each
 super-batch's outputs until it collects them, and the next run
@@ -211,9 +214,10 @@ def _shard_function(key: ProgramKey, gi, params, window: int):
 
 class SuperBatchProgram:
     """One super-batch pipeline (:func:`program_function`) with static
-    inputs on ``device``: a CUDA graph there, captured at construction
-    into ``pool`` (None: a pool of its own), or an eager call on a CPU
-    device.  :meth:`run` feeds it one super-batch."""
+    inputs on ``device``: on the card a CUDA graph, captured at
+    construction into ``pool`` (None: a pool of its own), unless
+    ``graph`` is False; else an eager call.  :meth:`run` feeds it one
+    super-batch."""
 
     # chain DP launches of the eager runs before each capture, by counter:
     # real launches, already in the wrapper's counters; with ``captures``
@@ -221,7 +225,7 @@ class SuperBatchProgram:
     captures = 0
     warmup_launches = dict.fromkeys(COUNTERS, 0)
 
-    def __init__(self, key: ProgramKey, fn, inputs, device: torch.device, pool=None):
+    def __init__(self, key: ProgramKey, fn, inputs, device: torch.device, pool=None, graph: bool = True):
         self.key = key
         self.fn = fn
         self.device = device
@@ -230,11 +234,11 @@ class SuperBatchProgram:
         self.outputs = None  # the static outputs, a tuple (None where fn has no such output)
         self.launches = dict.fromkeys(COUNTERS, 0)  # the chain DP launches a replay makes
         self.capture_s = 0.0
-        if device.type == "cuda":
+        if device.type == "cuda" and graph:
             t0 = time.perf_counter()
             self._capture(pool)
             self.capture_s = time.perf_counter() - t0
-        elif device.type != "cpu":
+        elif device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
 
     def _capture(self, pool) -> None:
@@ -266,11 +270,11 @@ class SuperBatchProgram:
         device, of the inputs' shapes and dtypes, in order) into the static
         inputs, run the program, and return clones of its outputs.  On the
         card host arrays go through pinned memory without blocking, tensors
-        by device copies, and the replay is enqueued: no call here waits
-        for the card."""
+        by device copies, and the replay (or the eager call) is enqueued:
+        no call here waits for the card."""
         if len(arrays) != len(self.inputs):
             raise ValueError(f"program {self.key} takes {len(self.inputs)} arrays, got {len(arrays)}")
-        on_card = self.graph is not None
+        on_card = self.device.type == "cuda"
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             for dst, a in zip(self.inputs, arrays):
                 src = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
@@ -284,7 +288,7 @@ class SuperBatchProgram:
                     dst.copy_(src.pin_memory(), non_blocking=True)
                 else:
                     dst.copy_(src, non_blocking=on_card)
-            if on_card:
+            if self.graph is not None:
                 self.graph.replay()
                 add_launches(self.launches)
             else:

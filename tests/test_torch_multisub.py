@@ -286,7 +286,9 @@ def test_count_batch_multisub_matches_reference_and_host(corpus, indexes, monkey
         names, seqs = (c.tnames, c.targets) if stream == "ava" else (c.qnames, c.queries)
     monkeypatch.setenv("LRGE_SHARDS", "1")  # the reference's single-device path
     monkeypatch.setenv("LRGE_DEVICE_MIN_ROWS", "0")  # every bucket on the device
-    monkeypatch.setenv("LRGE_HOST_SHARE", "0")  # the reference calibrates a host share by default
+    # the reference defaults to r = 0.30 (a TPU v5e calibration), the port to r = 0
+    # (its H100 sweep, chip_smoke.py phase 13): one schedule for both
+    monkeypatch.setenv("LRGE_HOST_SHARE", "0")
     # one bucket (the reference's CPU backend keeps one unless told
     # otherwise): A = num_anchors; the rule picks 3 subs for the
     # targets' index and 2 for the queries'

@@ -391,7 +391,9 @@ def test_count_batch_matches_reference_and_host(corpora, monkeypatch, corpus, av
     c = corpora[corpus]
     monkeypatch.setenv("LRGE_SHARDS", "1")  # the reference's single-device path
     monkeypatch.setenv("LRGE_DEVICE_MIN_ROWS", "0")  # every bucket on the device
-    monkeypatch.setenv("LRGE_HOST_SHARE", "0")  # the reference calibrates a host share by default
+    # the reference defaults to r = 0.30 (a TPU v5e calibration), the port to r = 0
+    # (its H100 sweep, chip_smoke.py phase 13): one schedule for both
+    monkeypatch.setenv("LRGE_HOST_SHARE", "0")
     buckets = (2048, 4096)
     # the reference's CPU backend keeps one bucket unless told otherwise
     monkeypatch.setenv("LRGE_DEVICE_BUCKET", ",".join(map(str, buckets)))

@@ -52,7 +52,9 @@ def run_both(index, names, seqs, monkeypatch, *, num_anchors, pairs, **filt):
     monkeypatch.setenv("LRGE_SHARDS", "1")  # the reference's single-device path
     monkeypatch.setenv("LRGE_DEVICE_BUCKET", "4096")
     monkeypatch.setenv("LRGE_DEVICE_MIN_ROWS", "0")
-    monkeypatch.setenv("LRGE_HOST_SHARE", "0")  # the port's host-share ratio is uncalibrated
+    # the reference defaults to r = 0.30 (a TPU v5e calibration), the port to r = 0
+    # (its H100 sweep, chip_smoke.py phase 13): one schedule for both
+    monkeypatch.setenv("LRGE_HOST_SHARE", "0")
     kw = dict(batch_size=16, num_anchors=num_anchors, window=32, length_buckets=(4096,))
     out = []
     for eng in (RefEngine(index, **kw), DeviceOverlapEngine(index, device=CPU, **kw)):

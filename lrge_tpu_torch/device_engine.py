@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -64,12 +63,15 @@ from .ops.program import ProgramKey, SuperBatchProgram, program_function
 from .ops.sketch import sketch_seqs_native
 from .parallel.distributed import is_multihost
 from .parallel.sharded import ShardedGroupedIndex, sharded_count_programs
+from .spans import carry, count, current, pass_record, span
 
 logger = logging.getLogger("lrge")
 
 # padded read lengths with their own pipeline shapes; longer reads take
 # the exact host path
 LENGTH_BUCKETS = (2048, 4096, 8192, 16384, 32768)
+# the stages of a pass, ``count_batch``'s children, as ``last_phases`` keys
+STAGES = ("prep", "enqueue", "collect", "retry")
 
 
 @dataclass
@@ -202,6 +204,9 @@ class DeviceOverlapEngine:
         self.super_batch = super_batch
         self.graphs = graphs
         self.fallback_triggers = Counter()  # why rows went to the host
+        # (record, count_batch span) of the last call, and of the last call
+        # that ran the device path: last_host_s and last_phases read them
+        self._call = self._device_call = None
         # PacBio/HPC preset: 2k = 38-bit keys (two int32 planes on the
         # device) and per-minimizer spans; queries are sketched on the
         # host by the native kernel (exact, HPC quirks included)
@@ -249,15 +254,16 @@ class DeviceOverlapEngine:
         # sub-indexes by target (counts are disjoint per sub and summed);
         # the minimizer lookup is shared across subs.  Keyed to the base
         # bucket: larger buckets scale their anchor capacity with length
-        n_post = len(index.keys)
-        n_uniq = max(1, len(np.unique(index.keys)))
-        exp_anchors = (self.length_buckets[0] / 3.0) * (n_post / n_uniq)
-        n_sub = max(1, int(np.ceil(exp_anchors / (0.6 * num_anchors))))
-        # ~4 buckets per unique key, capped so the offsets stay <= 256 MB
-        if "LRGE_BUCKET_BITS" in os.environ:
-            bucket_bits = int(os.environ["LRGE_BUCKET_BITS"])
-        else:
-            bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
+        with span("planes.host"):
+            n_post = len(index.keys)
+            n_uniq = max(1, len(np.unique(index.keys)))
+            exp_anchors = (self.length_buckets[0] / 3.0) * (n_post / n_uniq)
+            n_sub = max(1, int(np.ceil(exp_anchors / (0.6 * num_anchors))))
+            # ~4 buckets per unique key, capped so the offsets stay <= 256 MB
+            if "LRGE_BUCKET_BITS" in os.environ:
+                bucket_bits = int(os.environ["LRGE_BUCKET_BITS"])
+            else:
+                bucket_bits = min(max(int(np.ceil(np.log2(max(n_uniq, 2)))) + 2, 12), 26)
         self.gdev = GroupedDeviceIndex.from_host(index, self.device, n_sub=n_sub, bucket_bits=bucket_bits)
         if self.gdev is None:
             # from_host logged why: every posting pruned, or a wide index
@@ -471,27 +477,38 @@ class DeviceOverlapEngine:
         A = min(1 << 15, max(512, (self.num_anchors * L) // 4096))
         return A, max(1, (self.super_batch * 4096) // L)
 
+    def batch_groups(self, L, rows_b, seqs) -> list:
+        """The batches of one length bucket (``make_batches``), ``SUP`` to
+        a group: one group a super-batch."""
+        _, SUP = self.bucket_shape(L)
+        batches = make_batches(
+            [seqs[i] for i in rows_b], ids=rows_b, batch_size=self.batch_size, pad_to=L,
+            pow2_lengths=False, pad_batch=True,
+        )
+        return [batches[off : off + SUP] for off in range(0, len(batches), SUP)]
+
+    def pad_group(self, L, group, qdualrank, qselfrid):
+        """One super-batch's host arrays from its group of batches:
+        ``(nb, A, codes, lengths, ids, dual, selfr)``, padded to ``SUP``
+        batches."""
+        B = self.batch_size
+        A, SUP = self.bucket_shape(L)
+        codes = np.full((SUP, B, L), 4, dtype=np.uint8)
+        lengths = np.zeros((SUP, B), dtype=np.int32)
+        ids = np.full((SUP, B), -1, dtype=np.int32)
+        for g, batch in enumerate(group):
+            codes[g, :, : batch.codes.shape[1]] = batch.codes
+            lengths[g] = batch.lengths
+            ids[g] = batch.ids
+        dual = np.where(ids >= 0, qdualrank[ids], 0).astype(np.int32)
+        selfr = np.where(ids >= 0, qselfrid[ids], -1).astype(np.int32)
+        return len(group), A, codes, lengths, ids, dual, selfr
+
     def super_batches(self, L, rows_b, seqs, qdualrank, qselfrid):
         """The super-batches of one length bucket, as host arrays; yields
         ``(nb, A, codes, lengths, ids, dual, selfr)``."""
-        B = self.batch_size
-        A, SUP = self.bucket_shape(L)
-        batches = make_batches(
-            [seqs[i] for i in rows_b], ids=rows_b, batch_size=B, pad_to=L,
-            pow2_lengths=False, pad_batch=True,
-        )
-        for off in range(0, len(batches), SUP):
-            group = batches[off : off + SUP]
-            codes = np.full((SUP, B, L), 4, dtype=np.uint8)
-            lengths = np.zeros((SUP, B), dtype=np.int32)
-            ids = np.full((SUP, B), -1, dtype=np.int32)
-            for g, batch in enumerate(group):
-                codes[g, :, : batch.codes.shape[1]] = batch.codes
-                lengths[g] = batch.lengths
-                ids[g] = batch.ids
-            dual = np.where(ids >= 0, qdualrank[ids], 0).astype(np.int32)
-            selfr = np.where(ids >= 0, qselfrid[ids], -1).astype(np.int32)
-            yield len(group), A, codes, lengths, ids, dual, selfr
+        for group in self.batch_groups(L, rows_b, seqs):
+            yield self.pad_group(L, group, qdualrank, qselfrid)
 
     def _pb_planes(self, row_seqs, M):
         """Host-sketch a batch of PacBio reads into the device lookup planes
@@ -499,20 +516,22 @@ class DeviceOverlapEngine:
         19 (``qhi`` -1 on padding), ``pos << 9 | span << 1 | strand``, and
         the true minimizer counts (rows above ``M`` go to the host)."""
         p = self.params
-        mzs = sketch_seqs_native(row_seqs, p.k, p.w, p.hpc)
-        n = len(row_seqs)
-        qhi = np.full((n, M), -1, dtype=np.int32)
-        qlo = np.zeros((n, M), dtype=np.int32)
-        mps = np.zeros((n, M), dtype=np.int32)
-        mcount = np.zeros(n, dtype=np.int32)
-        for i, mz in enumerate(mzs):
-            h38 = mz.key >> np.uint64(8)
-            c = min(len(h38), M)
-            mcount[i] = len(h38)
-            qhi[i, :c] = (h38 >> np.uint64(PB_SPLIT)).astype(np.int32)[:c]
-            qlo[i, :c] = (h38 & np.uint64(PB_LOMASK)).astype(np.int32)[:c]
-            span = (mz.key & np.uint64(0xFF)).astype(np.int32)
-            mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (span[:c] << 1) | mz.strand.astype(np.int32)[:c]
+        with span("enqueue.pb_sketch"):
+            mzs = sketch_seqs_native(row_seqs, p.k, p.w, p.hpc)
+        with span("enqueue.pb_fill"):
+            n = len(row_seqs)
+            qhi = np.full((n, M), -1, dtype=np.int32)
+            qlo = np.zeros((n, M), dtype=np.int32)
+            mps = np.zeros((n, M), dtype=np.int32)
+            mcount = np.zeros(n, dtype=np.int32)
+            for i, mz in enumerate(mzs):
+                h38 = mz.key >> np.uint64(8)
+                c = min(len(h38), M)
+                mcount[i] = len(h38)
+                qhi[i, :c] = (h38 >> np.uint64(PB_SPLIT)).astype(np.int32)[:c]
+                qlo[i, :c] = (h38 & np.uint64(PB_LOMASK)).astype(np.int32)[:c]
+                mspan = (mz.key & np.uint64(0xFF)).astype(np.int32)
+                mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (mspan[:c] << 1) | mz.strand.astype(np.int32)[:c]
         return qhi, qlo, mps, mcount
 
     def program(self, L, A, SUP, *, want_pairs=False, want_extents=False, overhang_ratio=0.2,
@@ -571,7 +590,8 @@ class DeviceOverlapEngine:
             qhi, qlo, mps = (a.reshape(*ids.shape, -1) for a in planes[:3])
             return qhi, qlo, mps, planes[3].reshape(ids.shape), lengths, dual, selfr
         if self.sharded is None and self.gdev.n_sub == 1:
-            return pack2bit_host(codes), lengths, dual, selfr
+            with span("enqueue.pack"):
+                return pack2bit_host(codes), lengths, dual, selfr
         return codes, lengths, dual, selfr
 
     def sharded_run(self, L, A, arrays, want_pairs=False) -> tuple:
@@ -597,14 +617,26 @@ class DeviceOverlapEngine:
         On one device each super-batch is one run of the bucket's
         program (:meth:`program`, :meth:`program_arrays`); on a sharded
         index one run of the query program and of each shard's
-        (:meth:`sharded_run`)."""
-        for nb, A, codes, lengths, ids, dual, selfr in self.super_batches(L, rows_b, seqs, qdualrank, qselfrid):
-            arrays = self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs)
-            if self.sharded is not None:
-                packed, pairs = self.sharded_run(L, A, arrays, want_pairs=mode["want_pairs"])
-            else:
-                packed, pairs = self.program(L, A, ids.shape[0], **mode).run(*arrays)
+        (:meth:`sharded_run`).  Each super-batch's host work is one
+        ``super_batch`` span.  The batching is ``enqueue.batch`` spans:
+        the bucket's (:meth:`batch_groups`) under ``enqueue``, each
+        super-batch's padding (:meth:`pad_group`) under its
+        ``super_batch``."""
+        with span("enqueue.batch"):
+            groups = self.batch_groups(L, rows_b, seqs)
+        for i, group in enumerate(groups):
+            with span("super_batch", L=L, i=i):
+                with span("enqueue.batch"):
+                    nb, A, codes, lengths, ids, dual, selfr = self.pad_group(L, group, qdualrank, qselfrid)
+                count("pad_rows", int((ids < 0).sum()))
+                count("row_slots", ids.size)
+                arrays = self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs)
+                if self.sharded is not None:
+                    packed, pairs = self.sharded_run(L, A, arrays, want_pairs=mode["want_pairs"])
+                else:
+                    packed, pairs = self.program(L, A, ids.shape[0], **mode).run(*arrays)
             yield nb, A, codes, lengths, ids, packed, pairs
+
 
     def count_batch(
         self, names: list, seqs: list, collect_pairs=None, filter_ratio=None,
@@ -621,25 +653,57 @@ class DeviceOverlapEngine:
         it (``filter_mode`` ``"internal"`` or ``"overhang"``), and
         ``had_mapping`` stays the pre-filter flag.
 
-        Each call also leaves the reference's per-pass record
-        (device_engine.py:810-812, :1160-1163, :1206-1241):
-        ``last_anchors_valid`` (anchors chained, ``min(n_anchors, A)`` over
-        live rows) and ``last_anchor_slots`` (``SUP * B * A`` a
-        super-batch), reset at the start of every call, and
-        ``last_phases``, seconds by stage: ``prep`` (row plan, ranks),
-        ``enqueue`` (stage 1), ``collect`` with one ``collect_L{L}`` a
-        bucket (stage 2), ``retry`` (stage 3 and the host rows).  A call
-        without device planes leaves ``last_phases`` as it was.
-        ``last_host_s`` is the seconds that the host thread spent counting
-        the long-read and host-share rows beside the device (0 when it
-        had none)."""
-        t0 = time.perf_counter()
+        Each call is one pass record of ``lrge_tpu_torch.spans`` (the
+        set-up record when ``warming``), a ``count_batch`` span over the
+        stages ``prep`` (row plan, ranks), ``enqueue`` (stage 1),
+        ``collect`` (stage 2) and ``retry`` (stage 3 and the host rows),
+        with the host thread's ``host_thread`` span beside them.  It also
+        leaves the reference's per-pass record (device_engine.py:810-812,
+        :1160-1163, :1206-1241): ``last_anchors_valid`` (anchors chained,
+        ``min(n_anchors, A)`` over live rows) and ``last_anchor_slots``
+        (``SUP * B * A`` a super-batch), reset at the start of every call,
+        and :attr:`last_phases` and :attr:`last_host_s`, read from the
+        spans."""
+        with pass_record(warming), span("count_batch") as call:
+            self._call = (current(), call)
+            return self._count_batch(call, names, seqs, collect_pairs, filter_ratio, filter_mode, warming)
+
+    @property
+    def last_phases(self) -> dict:
+        """Seconds by stage of the last call that ran the device path (a
+        call without device planes leaves it as it was): ``prep``,
+        ``enqueue``, ``collect`` and ``retry``, its ``count_batch`` span's
+        children, and one ``collect_L{L}`` a bucket, the ``collect.wait``
+        and ``collect.triage`` spans of that bucket's super-batches."""
+        if self._device_call is None:
+            raise AttributeError("last_phases: no call has run the device path")
+        rec, call = self._device_call
+        phases = dict.fromkeys(STAGES, 0.0)
+        for s in rec.children(call):
+            if s.name in phases:
+                phases[s.name] = s.duration
+            if s.name == "collect":
+                for c in rec.children(s):
+                    key = f"collect_L{c.tags['L']}"
+                    phases[key] = phases.get(key, 0.0) + c.duration
+        return phases
+
+    @property
+    def last_host_s(self) -> float:
+        """Seconds that the host thread of the last call spent counting the
+        long-read and host-share rows beside the device (its
+        ``host_thread`` span; 0 when it had none)."""
+        if self._call is None:
+            raise AttributeError("last_host_s: count_batch has not run")
+        rec, call = self._call
+        return sum(s.duration for s in rec.children(call) if s.name == "host_thread")
+
+    def _count_batch(self, call, names, seqs, collect_pairs, filter_ratio, filter_mode, warming) -> BatchCounts:
         n = len(seqs)
         counts = np.zeros(n, dtype=np.int32)
         had = np.zeros(n, dtype=bool)
         self.last_anchors_valid = 0
         self.last_anchor_slots = 0
-        self.last_host_s = 0.0
         if filter_ratio is not None:
             if self.device_ok and not self.supports_device_filter():
                 raise ValueError("-F cannot run on the device for this index (supports_device_filter)")
@@ -661,109 +725,107 @@ class DeviceOverlapEngine:
             take_host(range(n), host_fn(list(zip(names, seqs))))
             return BatchCounts(counts, had, n)
 
-        max_bucket = self.length_buckets[-1]
-        long_rows, host_share_rows, bucket_rows = self.plan_rows(
-            seqs, range(n), pairs_wanted=collect_pairs is not None,
-            filter_active=filter_ratio is not None, warming=warming,
-        )
-        mode = dict(
-            want_pairs=collect_pairs is not None, want_extents=filter_ratio is not None,
-            overhang_ratio=float(filter_ratio or 0.2), filter_mode=filter_mode,
-        )
-        # long-tail and host-share reads run on the host concurrently with
-        # the device (the native kernel releases the GIL)
-        host_rows_all = long_rows + host_share_rows
-
         def host_thread(items):
-            t = time.perf_counter()
-            out = host_fn(items)
-            return out, time.perf_counter() - t
+            with span("host_thread"):
+                return host_fn(items)
 
-        pool = ThreadPoolExecutor(1) if host_rows_all else None
-        host_future = (
-            pool.submit(host_thread, [(names[i], seqs[i]) for i in host_rows_all])
-            if pool is not None
-            else None
-        )
-        phases = {"prep": 0.0, "enqueue": 0.0, "collect": 0.0, "retry": 0.0}
+        max_bucket = self.length_buckets[-1]
+        pool = host_future = None
         try:
-            qdualrank, qselfrid = self.query_ranks(names)
-            t1 = time.perf_counter()
-            phases["prep"] = t1 - t0
+            with span("prep"):
+                long_rows, host_share_rows, bucket_rows = self.plan_rows(
+                    seqs, range(n), pairs_wanted=collect_pairs is not None,
+                    filter_active=filter_ratio is not None, warming=warming,
+                )
+                mode = dict(
+                    want_pairs=collect_pairs is not None, want_extents=filter_ratio is not None,
+                    overhang_ratio=float(filter_ratio or 0.2), filter_mode=filter_mode,
+                )
+                # long-tail and host-share reads run on the host concurrently
+                # with the device (the native kernel releases the GIL)
+                host_rows_all = long_rows + host_share_rows
+                if host_rows_all:
+                    pool = ThreadPoolExecutor(1)
+                    host_future = pool.submit(
+                        carry(host_thread, call), [(names[i], seqs[i]) for i in host_rows_all]
+                    )
+                qdualrank, qselfrid = self.query_ranks(names)
             # stage 1: enqueue every super-batch, one program replay each (on
             # a sharded index the query program's and each shard's) fed by
             # asynchronous copies; nothing waits for the card until stage
             # 2, so the host prepares the next super-batch while the card
             # runs this one (the reference's device_engine.py:900-901, :961)
-            inflight = []
-            for L in self.length_buckets:
-                if bucket_rows.get(L):
-                    inflight.extend(self._dispatch(L, bucket_rows[L], seqs, qdualrank, qselfrid, **mode))
-            t0 = t_bucket = time.perf_counter()
-            phases["enqueue"] = t0 - t1
+            with span("enqueue"):
+                inflight = []
+                for L in self.length_buckets:
+                    if bucket_rows.get(L):
+                        inflight.extend(self._dispatch(L, bucket_rows[L], seqs, qdualrank, qselfrid, **mode))
             # stage 2: collect and triage
-            retry = []
-            for nb, A, codes, lengths, ids, packed, pairs in inflight:
-                arr = packed.cpu().numpy().astype(np.int64)
-                bcounts, n_anchors, max_run, mcount = (arr[..., j][:nb] for j in range(4))
-                live = ids[:nb] >= 0
-                SUP, B, L = codes.shape
-                self.last_anchors_valid += int(np.minimum(n_anchors, A)[live].sum())
-                self.last_anchor_slots += SUP * B * A
-                needs = self.triage_flags(
-                    live, n_anchors, A, max_run, mcount, minimizer_cap(codes.shape[2]),
-                    codes[:nb], lengths[:nb],
-                )
-                if filter_ratio is not None:
-                    raw_had = (bcounts >> HAD_BIT) > 0
-                    bcounts = bcounts & ((1 << HAD_BIT) - 1)
-                else:
-                    raw_had = bcounts > 0
-                if collect_pairs is not None:
-                    pair_ranks = pairs.cpu().numpy()[:nb]
-                    # more passing targets than the pair plane holds
-                    t_pair = ((pair_ranks >= 0).sum(axis=2) < bcounts) & live & ~needs
-                    if t_pair.any():
-                        self.fallback_triggers["pair_truncation"] += int(t_pair.sum())
-                    needs = needs | t_pair
-                retry.extend(ids[:nb][needs].tolist())
-                ok = live & ~needs
-                ok_ids = ids[:nb][ok]
-                counts[ok_ids] = bcounts[ok]
-                had[ok_ids] = raw_had[ok]
-                if collect_pairs is not None:
-                    for qid, pr in zip(ok_ids, pair_ranks[ok]):
-                        collect_pairs[qid] = self._ranks_to_rids(pr[pr >= 0])
-                now = time.perf_counter()
-                phases[f"collect_L{L}"] = phases.get(f"collect_L{L}", 0.0) + (now - t_bucket)
-                t_bucket = now
-            t1 = time.perf_counter()
-            phases["collect"] = t1 - t0
+            with span("collect"):
+                retry = []
+                for nb, A, codes, lengths, ids, packed, pairs in inflight:
+                    SUP, B, L = codes.shape
+                    with span("collect.wait", L=L):
+                        packed = packed.cpu()
+                        if collect_pairs is not None:
+                            pairs = pairs.cpu()
+                    with span("collect.triage", L=L):
+                        arr = packed.numpy().astype(np.int64)
+                        bcounts, n_anchors, max_run, mcount = (arr[..., j][:nb] for j in range(4))
+                        live = ids[:nb] >= 0
+                        self.last_anchors_valid += int(np.minimum(n_anchors, A)[live].sum())
+                        self.last_anchor_slots += SUP * B * A
+                        needs = self.triage_flags(
+                            live, n_anchors, A, max_run, mcount, minimizer_cap(L), codes[:nb], lengths[:nb],
+                        )
+                        if filter_ratio is not None:
+                            raw_had = (bcounts >> HAD_BIT) > 0
+                            bcounts = bcounts & ((1 << HAD_BIT) - 1)
+                        else:
+                            raw_had = bcounts > 0
+                        if collect_pairs is not None:
+                            pair_ranks = pairs.numpy()[:nb]
+                            # more passing targets than the pair plane holds
+                            t_pair = ((pair_ranks >= 0).sum(axis=2) < bcounts) & live & ~needs
+                            if t_pair.any():
+                                self.fallback_triggers["pair_truncation"] += int(t_pair.sum())
+                            needs = needs | t_pair
+                        retry.extend(ids[:nb][needs].tolist())
+                        ok = live & ~needs
+                        ok_ids = ids[:nb][ok]
+                        counts[ok_ids] = bcounts[ok]
+                        had[ok_ids] = raw_had[ok]
+                        if collect_pairs is not None:
+                            for qid, pr in zip(ok_ids, pair_ranks[ok]):
+                                collect_pairs[qid] = self._ranks_to_rids(pr[pr >= 0])
             # stage 3: exact host recompute of the flagged rows
-            take_host(retry, host_fn([(names[i], seqs[i]) for i in retry]))
-            fallback = len(retry)
-            if host_future is not None:
-                host_res, self.last_host_s = host_future.result()
-                take_host(host_rows_all, host_res)
-                share_set = set(host_share_rows)
-                for i in host_rows_all:
-                    if i in share_set:
-                        # deliberate heterogeneous scheduling, not a fallback
-                        self.fallback_triggers["host_share"] += 1
-                        continue
-                    fallback += 1
-                    self.fallback_triggers[
-                        "long_read" if len(seqs[i]) > max_bucket else "sparse_bucket"
-                    ] += 1
-            phases["retry"] = time.perf_counter() - t1
+            with span("retry"):
+                with span("retry.recount"):
+                    take_host(retry, host_fn([(names[i], seqs[i]) for i in retry]))
+                fallback = len(retry)
+                if host_future is not None:
+                    with span("retry.join"):
+                        take_host(host_rows_all, host_future.result())
+                        share_set = set(host_share_rows)
+                        for i in host_rows_all:
+                            if i in share_set:
+                                # deliberate heterogeneous scheduling, not a fallback
+                                self.fallback_triggers["host_share"] += 1
+                                continue
+                            fallback += 1
+                            self.fallback_triggers[
+                                "long_read" if len(seqs[i]) > max_bucket else "sparse_bucket"
+                            ] += 1
         finally:
             if pool is not None:
                 pool.shutdown()
+        self._device_call = self._call
         if fallback:
             logger.debug(
                 "device path: %d/%d rows fell back to host (%s)", fallback, n,
                 dict(self.fallback_triggers),
             )
-        logger.debug("device path phases: %s", {k: round(v, 2) for k, v in phases.items()})
-        self.last_phases = phases
+        if logger.isEnabledFor(logging.DEBUG):
+            rec, _ = self._call
+            logger.debug("device path phases: %s", {s.name: round(s.duration, 2) for s in rec.children(call)})
         return BatchCounts(counts, had, fallback)

@@ -20,6 +20,8 @@ import subprocess
 import sysconfig
 from pathlib import Path
 
+from ..spans import span
+
 logger = logging.getLogger("lrge")
 
 MODULE = "_lrge_torch_native"
@@ -78,7 +80,8 @@ def _load():
 native = None
 if os.environ.get("LRGE_NO_NATIVE") != "1":
     try:
-        native = _load()
+        with span("load", lib="native"):
+            native = _load()
     except (OSError, ImportError) as e:  # pragma: no cover
         logger.debug("native extension unavailable: %s", e)
         native = None

@@ -83,6 +83,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..spans import span
+
 NEG = int(np.iinfo(np.int32).min // 2)
 IMAX = int(np.iinfo(np.int32).max)
 
@@ -162,7 +164,8 @@ def ptxas_report(so: Path) -> list[str]:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+    with span("load", lib="chain_dp"):
+        lib = ctypes.CDLL(str(build_library()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # key2, rpos, qpos, valid, nvalid, work, B, A, pen_gap, span,
     # max_gap, bw, max_skip, window, outputs..., stream

@@ -22,6 +22,7 @@ from typing import Sequence
 import numpy as np
 
 from ..platform import OverlapParams
+from ..spans import span
 from .encode import encode_seq
 from .sketch import sketch_read
 
@@ -212,32 +213,31 @@ def build_index(
     sketches serially.  All paths produce identical indexes (quirk rows
     use the exact scalar oracle everywhere).
     """
-    all_keys = []
-    all_rid = []
-    all_pos = []
-    all_strand = []
     lengths = np.array([len(s) for s in seqs], dtype=np.int32)
-    per_read = None
-    if device == "device":
-        per_read = _sketch_reads_device(seqs, params, lengths, torch_device)
-    elif device == "auto":
-        from .sketch import sketch_seqs_native
+    with span("index.sketch", device=device):
+        per_read = None
+        if device == "device":
+            per_read = _sketch_reads_device(seqs, params, lengths, torch_device)
+        elif device == "auto":
+            from .sketch import sketch_seqs_native
 
-        res = sketch_seqs_native(seqs, params.k, params.w, params.hpc, threads)
-        if res is not None:
-            per_read = [
-                (
-                    (mz.key >> np.uint64(8)).astype(np.uint64),
-                    mz.pos.astype(np.int32),
-                    mz.strand.astype(np.int8),
-                )
-                for mz in res
-            ]
-        elif len(seqs) >= 2000 and threads > 1:
-            per_read = _sketch_reads_parallel(seqs, params, workers=threads)
-    if per_read is not None:
-        for rid, entry in enumerate(per_read):
-            key, pos, strand = entry
+            res = sketch_seqs_native(seqs, params.k, params.w, params.hpc, threads)
+            if res is not None:
+                per_read = [
+                    (
+                        (mz.key >> np.uint64(8)).astype(np.uint64),
+                        mz.pos.astype(np.int32),
+                        mz.strand.astype(np.int8),
+                    )
+                    for mz in res
+                ]
+            elif len(seqs) >= 2000 and threads > 1:
+                per_read = _sketch_reads_parallel(seqs, params, workers=threads)
+        if per_read is None:
+            per_read = [_host_sketch(encode_seq(seq), params) for seq in seqs]
+    with span("index.assemble"):
+        all_keys, all_rid, all_pos, all_strand = [], [], [], []
+        for rid, (key, pos, strand) in enumerate(per_read):
             if len(key) == 0:
                 continue
             all_keys.append(key)
@@ -245,16 +245,6 @@ def build_index(
             all_pos.append(pos)
             all_strand.append(strand)
         return _assemble_index(all_keys, all_rid, all_pos, all_strand, names, lengths, params)
-    for rid, seq in enumerate(seqs):
-        codes = encode_seq(seq)
-        mz = sketch_read(codes, params.k, params.w, params.hpc)
-        if len(mz.key) == 0:
-            continue
-        all_keys.append(mz.key >> np.uint64(8))  # index matches on hash only
-        all_rid.append(np.full(len(mz.key), rid, dtype=np.int32))
-        all_pos.append(mz.pos.astype(np.int32))
-        all_strand.append(mz.strand.astype(np.int8))
-    return _assemble_index(all_keys, all_rid, all_pos, all_strand, names, lengths, params)
 
 
 def _assemble_index(all_keys, all_rid, all_pos, all_strand, names, lengths, params):

@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..spans import span
 from .chain_kernel import IMAX, chain_dp_skip
 from .sketch_torch import INF, sketch_core
 
@@ -247,133 +248,136 @@ class GroupedDeviceIndex:
         ``TargetIndex`` (numpy) and move them to ``device``; ``None``
         (logged at INFO) when every posting was pruned or a wide index's
         bucketed dictionary cannot be built."""
-        keys, rid, pos, strand = _pruned_postings(index)
-        N = len(keys)
-        if N == 0:
-            logger.info("no device index: every posting is above the occurrence cutoff")
-            return None
-        hash_bits = 2 * index.params.k
-        wide = hash_bits > 31
-        if wide:
-            keys32 = None
-            ustart = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
-        else:
-            keys32 = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
-            ustart = np.flatnonzero(np.concatenate(([True], keys32[1:] != keys32[:-1])))
-        U = len(ustart)
-        uoff = np.concatenate([ustart, [N]]).astype(np.int32)
-        occ = np.diff(uoff)
-        # group each key run's postings by sub (stable: (rid, pos) order
-        # kept inside a group); one sub keeps the order as it is
-        if n_sub > 1:
-            sub = (rid % n_sub).astype(np.int64)
-            run_u = np.repeat(np.arange(U, dtype=np.int64), occ)
-            order = np.lexsort((sub, run_u))
-            rid, pos, strand = rid[order], pos[order], strand[order]
-            # per-(unique, sub) posting counts: the reference's np.add.at
-            # as one bincount
-            counts = np.bincount(run_u * n_sub + sub[order], minlength=U * n_sub).reshape(U, n_sub)
-        else:
-            counts = occ[:, None]
-        # each (unique, sub) range's absolute start, [U, n_sub + 1]
-        soff = np.concatenate(
-            [np.zeros((U, 1), np.int64), np.cumsum(counts, axis=1, dtype=np.int64)], axis=1
-        ) + ustart[:, None]
-        # the posting plane carries name ranks (the no-dual gate compares ranks)
-        rank_of = index.name_rank.astype(np.int32)
-        rid_g = rank_of[rid]
-        pos_g = (pos.astype(np.int32) << 1) | strand.astype(np.int32)
-        uh_lo = None
-        if wide:
-            uh_u = keys[ustart].astype(np.uint64)
-            uh_plane = (uh_u >> np.uint64(PB_SPLIT)).astype(np.int32)
-            uh_lo = (uh_u & np.uint64(PB_LOMASK)).astype(np.int32)
-        else:
-            uh_plane = keys32[ustart]
-            uh_u = (uh_plane.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
-        kmax = 8
-        if bucket_bits > 0 and hash_bits > bucket_bits:
-            ub = (uh_u >> np.uint64(hash_bits - bucket_bits)).astype(np.int64)
-            boff = np.zeros((1 << bucket_bits) + 1, dtype=np.int32)
-            np.add.at(boff, ub + 1, 1)
-            np.cumsum(boff, out=boff)
-            kmax = max(4, (int(np.max(np.diff(boff))) + 3) // 4 * 4)
-            if kmax > 16:
+        with span("planes.host"):
+            keys, rid, pos, strand = _pruned_postings(index)
+            N = len(keys)
+            if N == 0:
+                logger.info("no device index: every posting is above the occurrence cutoff")
+                return None
+            hash_bits = 2 * index.params.k
+            wide = hash_bits > 31
+            if wide:
+                keys32 = None
+                ustart = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
+            else:
+                keys32 = (keys.astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+                ustart = np.flatnonzero(np.concatenate(([True], keys32[1:] != keys32[:-1])))
+            U = len(ustart)
+            uoff = np.concatenate([ustart, [N]]).astype(np.int32)
+            occ = np.diff(uoff)
+            # group each key run's postings by sub (stable: (rid, pos) order
+            # kept inside a group); one sub keeps the order as it is
+            if n_sub > 1:
+                sub = (rid % n_sub).astype(np.int64)
+                run_u = np.repeat(np.arange(U, dtype=np.int64), occ)
+                order = np.lexsort((sub, run_u))
+                rid, pos, strand = rid[order], pos[order], strand[order]
+                # per-(unique, sub) posting counts: the reference's np.add.at
+                # as one bincount
+                counts = np.bincount(run_u * n_sub + sub[order], minlength=U * n_sub).reshape(U, n_sub)
+            else:
+                counts = occ[:, None]
+            # each (unique, sub) range's absolute start, [U, n_sub + 1]
+            soff = np.concatenate(
+                [np.zeros((U, 1), np.int64), np.cumsum(counts, axis=1, dtype=np.int64)], axis=1
+            ) + ustart[:, None]
+            # the posting plane carries name ranks (the no-dual gate compares ranks)
+            rank_of = index.name_rank.astype(np.int32)
+            rid_g = rank_of[rid]
+            pos_g = (pos.astype(np.int32) << 1) | strand.astype(np.int32)
+            uh_lo = None
+            if wide:
+                uh_u = keys[ustart].astype(np.uint64)
+                uh_plane = (uh_u >> np.uint64(PB_SPLIT)).astype(np.int32)
+                uh_lo = (uh_u & np.uint64(PB_LOMASK)).astype(np.int32)
+            else:
+                uh_plane = keys32[ustart]
+                uh_u = (uh_plane.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+            kmax = 8
+            if bucket_bits > 0 and hash_bits > bucket_bits:
+                ub = (uh_u >> np.uint64(hash_bits - bucket_bits)).astype(np.int64)
+                boff = np.zeros((1 << bucket_bits) + 1, dtype=np.int32)
+                np.add.at(boff, ub + 1, 1)
+                np.cumsum(boff, out=boff)
+                kmax = max(4, (int(np.max(np.diff(boff))) + 3) // 4 * 4)
+                if kmax > 16:
+                    bucket_bits = 0
+                    boff = np.zeros(1, dtype=np.int32)
+            else:
                 bucket_bits = 0
                 boff = np.zeros(1, dtype=np.int32)
-        else:
-            bucket_bits = 0
-            boff = np.zeros(1, dtype=np.int32)
-        if wide and bucket_bits == 0:
-            # the wide lookup has no other dictionary
-            logger.info(
-                "no device index: the wide-key bucketed dictionary has a bucket of more than 16 keys"
+            if wide and bucket_bits == 0:
+                # the wide lookup has no other dictionary
+                logger.info(
+                    "no device index: the wide-key bucketed dictionary has a bucket of more than 16 keys"
+                )
+                return None
+            no_pack = os.environ.get("LRGE_NO_PACK") == "1"
+            T = len(index.name_rank)
+            rid_bits = max(1, int(T - 1).bit_length()) if T else 1
+            pos_bits = max(1, int(pos_g.max() >> 1).bit_length())
+            packed_rid_bits = 0
+            rps = None
+            if not no_pack and not wide and rid_bits + pos_bits + 1 <= 31:
+                packed_rid_bits = pos_bits
+                rps = (rid_g << (1 + pos_bits)) | pos_g
+            # the widest (unique, sub) range sets the packed width field
+            occ_bits = max(1, int(counts.max()).bit_length())
+            lo_bits = max(1, int(N).bit_length())
+            packed_dict_bits = 0
+            loocc = None
+            if not no_pack and lo_bits + occ_bits <= 31:
+                packed_dict_bits = occ_bits
+                loocc = (soff[:, :-1].T << occ_bits) | counts.T  # [n_sub, U]
+            # 2-probe cuckoo dictionary (one sub, narrow keys); a
+            # non-convergent walk keeps the bucketed planes
+            cuckoo_bits = 0
+            if (
+                n_sub == 1 and packed_dict_bits and not wide and hash_bits <= 30
+                and os.environ.get("LRGE_NO_CUCKOO") != "1"
+            ):
+                built = _build_cuckoo(uh_u.astype(np.uint32))
+                if built is not None:
+                    cpos, cuckoo_bits = built
+                    C = 1 << cuckoo_bits
+                    ckey_raw = np.full(C, np.uint32(1 << hash_bits), dtype=np.uint32)
+                    ckey_raw[cpos] = uh_u.astype(np.uint32)
+                    uh_plane = (ckey_raw ^ np.uint32(0x80000000)).view(np.int32)
+                    lc = np.zeros(C, dtype=np.int32)  # empty slots: occ 0
+                    lc[cpos] = loocc[0]
+                    loocc = lc[None]
+                    uoff = lc  # the lookup's occurrence-gate plane
+                    bucket_bits = 0
+                    boff = np.zeros(1, dtype=np.int32)
+            dummy = np.zeros(1, dtype=np.int32)
+            sub_dummy = np.zeros((n_sub, 1), dtype=np.int32)
+            tlen = _rank_order(index)
+        with span("planes.copy"):
+            put = lambda a: None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.int32)
+            ).to(device)
+            return cls(
+                rid=put(dummy if packed_rid_bits else rid_g),
+                pos=put(dummy if packed_rid_bits else pos_g),
+                rank=put(rank_of),
+                mid_occ=int(index.mid_occ),
+                uhash=put(uh_plane),
+                uoff=put(uoff),
+                boff=put(boff),
+                lo=put(sub_dummy if packed_dict_bits else soff[:, :-1].T),
+                hi=put(sub_dummy if packed_dict_bits else soff[:, 1:].T),
+                bucket_bits=bucket_bits,
+                bucket_kmax=kmax,
+                n_sub=n_sub,
+                uhash_lo=put(uh_lo),
+                wide=wide,
+                packed_rid_bits=packed_rid_bits,
+                rps=put(rps),
+                packed_dict_bits=packed_dict_bits,
+                loocc=put(loocc),
+                tlen=put(tlen),
+                cuckoo_bits=cuckoo_bits,
             )
-            return None
-        no_pack = os.environ.get("LRGE_NO_PACK") == "1"
-        T = len(index.name_rank)
-        rid_bits = max(1, int(T - 1).bit_length()) if T else 1
-        pos_bits = max(1, int(pos_g.max() >> 1).bit_length())
-        packed_rid_bits = 0
-        rps = None
-        if not no_pack and not wide and rid_bits + pos_bits + 1 <= 31:
-            packed_rid_bits = pos_bits
-            rps = (rid_g << (1 + pos_bits)) | pos_g
-        # the widest (unique, sub) range sets the packed width field
-        occ_bits = max(1, int(counts.max()).bit_length())
-        lo_bits = max(1, int(N).bit_length())
-        packed_dict_bits = 0
-        loocc = None
-        if not no_pack and lo_bits + occ_bits <= 31:
-            packed_dict_bits = occ_bits
-            loocc = (soff[:, :-1].T << occ_bits) | counts.T  # [n_sub, U]
-        # 2-probe cuckoo dictionary (one sub, narrow keys); a
-        # non-convergent walk keeps the bucketed planes
-        cuckoo_bits = 0
-        if (
-            n_sub == 1 and packed_dict_bits and not wide and hash_bits <= 30
-            and os.environ.get("LRGE_NO_CUCKOO") != "1"
-        ):
-            built = _build_cuckoo(uh_u.astype(np.uint32))
-            if built is not None:
-                cpos, cuckoo_bits = built
-                C = 1 << cuckoo_bits
-                ckey_raw = np.full(C, np.uint32(1 << hash_bits), dtype=np.uint32)
-                ckey_raw[cpos] = uh_u.astype(np.uint32)
-                uh_plane = (ckey_raw ^ np.uint32(0x80000000)).view(np.int32)
-                lc = np.zeros(C, dtype=np.int32)  # empty slots: occ 0
-                lc[cpos] = loocc[0]
-                loocc = lc[None]
-                uoff = lc  # the lookup's occurrence-gate plane
-                bucket_bits = 0
-                boff = np.zeros(1, dtype=np.int32)
-        dummy = np.zeros(1, dtype=np.int32)
-        sub_dummy = np.zeros((n_sub, 1), dtype=np.int32)
-        put = lambda a: None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.int32)
-        ).to(device)
-        return cls(
-            rid=put(dummy if packed_rid_bits else rid_g),
-            pos=put(dummy if packed_rid_bits else pos_g),
-            rank=put(rank_of),
-            mid_occ=int(index.mid_occ),
-            uhash=put(uh_plane),
-            uoff=put(uoff),
-            boff=put(boff),
-            lo=put(sub_dummy if packed_dict_bits else soff[:, :-1].T),
-            hi=put(sub_dummy if packed_dict_bits else soff[:, 1:].T),
-            bucket_bits=bucket_bits,
-            bucket_kmax=kmax,
-            n_sub=n_sub,
-            uhash_lo=put(uh_lo),
-            wide=wide,
-            packed_rid_bits=packed_rid_bits,
-            rps=put(rps),
-            packed_dict_bits=packed_dict_bits,
-            loocc=put(loocc),
-            tlen=put(_rank_order(index)),
-            cuckoo_bits=cuckoo_bits,
-        )
 
     @classmethod
     def from_jax_planes(cls, planes: dict, device: torch.device):

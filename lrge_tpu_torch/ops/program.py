@@ -66,13 +66,13 @@ cards cannot share one.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..parallel.sharded import query_keep, shard_count
+from ..spans import span
 from .chain_kernel import COUNTERS, add_launches, launch_counts, recorded_launches
 from .overlap import map_subs, minimizer_cap, pb_map_many, sketch_lookup_many, sketch_map_many
 from .sketch_torch import sketch_core
@@ -233,13 +233,18 @@ class SuperBatchProgram:
         self.graph = None
         self.outputs = None  # the static outputs, a tuple (None where fn has no such output)
         self.launches = dict.fromkeys(COUNTERS, 0)  # the chain DP launches a replay makes
-        self.capture_s = 0.0
+        self._capture_span = None
         if device.type == "cuda" and graph:
-            t0 = time.perf_counter()
-            self._capture(pool)
-            self.capture_s = time.perf_counter() - t0
+            with span("capture", key=key) as self._capture_span:
+                self._capture(pool)
         elif device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds of the capture (its ``capture`` span: the eager run and
+        the recording); 0 without a graph."""
+        return 0.0 if self._capture_span is None else self._capture_span.duration
 
     def _capture(self, pool) -> None:
         cls = type(self)
@@ -271,11 +276,11 @@ class SuperBatchProgram:
         inputs, run the program, and return clones of its outputs.  On the
         card host arrays go through pinned memory without blocking, tensors
         by device copies, and the replay (or the eager call) is enqueued:
-        no call here waits for the card."""
+        no call here waits for the card.  One ``enqueue.submit`` span."""
         if len(arrays) != len(self.inputs):
             raise ValueError(f"program {self.key} takes {len(self.inputs)} arrays, got {len(arrays)}")
         on_card = self.device.type == "cuda"
-        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+        with span("enqueue.submit"), torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             for dst, a in zip(self.inputs, arrays):
                 src = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
                 if src.shape != dst.shape or src.dtype != dst.dtype:

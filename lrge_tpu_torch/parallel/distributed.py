@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -46,6 +45,7 @@ import torch.distributed as dist
 
 from ..ops.encode import encode_seq
 from ..ops.overlap import minimizer_cap
+from ..spans import pass_record, span
 from .sharded import on_device, sharded_count_programs
 
 logger = logging.getLogger("lrge")
@@ -163,10 +163,21 @@ def multihost_count_batch(dev, names: list, seqs: list):
     are captured before the first dispatch, so no capture, which waits
     for the card, stalls the ring).  Every block stays in flight on the
     card until the last dispatch; the triage follows.  Returns a
-    ``BatchCounts`` with the global counts, the same on every process."""
+    ``BatchCounts`` with the global counts, the same on every process.
+    The call is one pass record of ``lrge_tpu_torch.spans``, a
+    ``count_batch`` span tagged ``lockstep``."""
+    with pass_record(), span("count_batch", lockstep=True) as call:
+        res = _lockstep_count(dev, names, seqs)
+    logger.debug(
+        "lockstep count: process %d/%d, %d rows in %.3f s, %d recounted on the host",
+        dist.get_rank(), dist.get_world_size(), len(seqs), call.duration, res.fallback_rows,
+    )
+    return res
+
+
+def _lockstep_count(dev, names: list, seqs: list):
     from ..device_engine import BatchCounts
 
-    t0 = time.perf_counter()
     if not dev.lockstep:
         raise ValueError("multihost_count_batch needs an engine sharded across the processes")
     nproc, pid = dist.get_world_size(), dist.get_rank()
@@ -188,13 +199,13 @@ def multihost_count_batch(dev, names: list, seqs: list):
         "lockstep count: process %d/%d, rows [%d, %d), %d dispatches of %d rows, %d ring hops each",
         pid, nproc, s, e, int(n_disp.sum()), b_loc, nproc,
     )
-    t_cap = time.perf_counter()
-    for bi, L in enumerate(buckets):
-        if n_disp[bi]:
-            dev.shard_programs(L, dev.bucket_shape(L)[0], 1, b_loc)
+    with span("programs") as ready:
+        for bi, L in enumerate(buckets):
+            if n_disp[bi]:
+                dev.shard_programs(L, dev.bucket_shape(L)[0], 1, b_loc)
     logger.debug(
         "lockstep count: process %d/%d, every bucket's programs ready in %.3f s, before the first dispatch",
-        pid, nproc, time.perf_counter() - t_cap,
+        pid, nproc, ready.duration,
     )
     # the long tail and the host share run on the host meanwhile
     host_rows_all = long_rows + host_share_rows
@@ -263,8 +274,4 @@ def multihost_count_batch(dev, names: list, seqs: list):
     for q, (st, en) in enumerate(slices):
         counts[st:en] = packed[q, 0, : en - st]
         had[st:en] = packed[q, 1, : en - st].astype(bool)
-    logger.debug(
-        "lockstep count: process %d/%d, %d rows in %.3f s, %d recounted on the host",
-        pid, nproc, n, time.perf_counter() - t0, fallback,
-    )
     return BatchCounts(counts, had, fallback)

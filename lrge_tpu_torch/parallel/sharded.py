@@ -41,6 +41,7 @@ from ..ops.overlap import (
     _q_occ_drop_wide, found_ranges, map_found_core,
 )
 from ..ops.sketch_torch import INF
+from ..spans import span
 
 IMAX = np.iinfo(np.int32).max
 # the per-shard planes, each a list of S int32 arrays
@@ -83,78 +84,79 @@ class ShardedGroupedIndex:
         """Build from a host ``TargetIndex`` (the reference's :92-213);
         ``None`` when a shard's dictionary has a bucket of more than 24
         keys (the caller then runs the single-device grouped path)."""
-        pkeys, prid, ppos, pstrand = _pruned_postings(index)
-        N = len(pkeys)
-        S = n_shards
-        hash_bits = 2 * index.params.k
-        wide = hash_bits > 31
-        shard_of = prid % S if N else np.zeros(0, np.int64)
-        # global packing decisions
-        T = len(index.name_rank)
-        rid_bits = max(1, int(T - 1).bit_length()) if T else 1
-        pos_bits = max(1, (int(ppos.max()) if N else 0).bit_length())
-        packed_rid_bits = pos_bits if (not wide and rid_bits + pos_bits + 1 <= 31) else 0
-        rank_of = index.name_rank.astype(np.int32)
-        per_shard = []
-        for s in range(S):
-            sel = np.flatnonzero(shard_of == s)
-            skeys = pkeys[sel]  # sorted: the global order is kept
-            # postings carry name ranks; the partition keys on the rid
-            srid = rank_of[prid[sel]]
-            spos = (ppos[sel].astype(np.int32) << 1) | pstrand[sel].astype(np.int32)
-            ustart = np.flatnonzero(np.concatenate(([True], skeys[1:] != skeys[:-1]))) if len(skeys) else (
-                np.zeros(0, np.int64)
+        with span("planes.host"):
+            pkeys, prid, ppos, pstrand = _pruned_postings(index)
+            N = len(pkeys)
+            S = n_shards
+            hash_bits = 2 * index.params.k
+            wide = hash_bits > 31
+            shard_of = prid % S if N else np.zeros(0, np.int64)
+            # global packing decisions
+            T = len(index.name_rank)
+            rid_bits = max(1, int(T - 1).bit_length()) if T else 1
+            pos_bits = max(1, (int(ppos.max()) if N else 0).bit_length())
+            packed_rid_bits = pos_bits if (not wide and rid_bits + pos_bits + 1 <= 31) else 0
+            rank_of = index.name_rank.astype(np.int32)
+            per_shard = []
+            for s in range(S):
+                sel = np.flatnonzero(shard_of == s)
+                skeys = pkeys[sel]  # sorted: the global order is kept
+                # postings carry name ranks; the partition keys on the rid
+                srid = rank_of[prid[sel]]
+                spos = (ppos[sel].astype(np.int32) << 1) | pstrand[sel].astype(np.int32)
+                ustart = np.flatnonzero(np.concatenate(([True], skeys[1:] != skeys[:-1]))) if len(skeys) else (
+                    np.zeros(0, np.int64)
+                )
+                uoff = np.concatenate([ustart, [len(skeys)]]).astype(np.int32)
+                per_shard.append((skeys, srid, spos, ustart, uoff))
+            max_n = max([1] + [len(x[0]) for x in per_shard])
+            max_u = max([1] + [len(x[3]) for x in per_shard])
+            # one bucket width for every shard, from the largest shard's uniques
+            bucket_bits = min(max(int(np.ceil(np.log2(max(max_u, 2)))) + 2, 12), 26, hash_bits - 1)
+            nb = 1 << bucket_bits
+            max_occ = max([1] + [int(np.max(np.diff(x[4]))) for x in per_shard if len(x[3])])
+            occ_bits = max(1, max_occ.bit_length())
+            packed_dict_bits = occ_bits if max_n.bit_length() + occ_bits <= 31 else 0
+            planes = {name: [] for name in PLANES}
+            kmax = 4
+            for skeys, srid, spos, ustart, uoff in per_shard:
+                n, u = len(skeys), len(ustart)
+                post0 = np.full(max(n, 1), IMAX, np.int32)
+                post1 = np.zeros(1 if packed_rid_bits else max(n, 1), np.int32)
+                if packed_rid_bits:
+                    post0[:n] = (srid << (1 + packed_rid_bits)) | spos
+                else:
+                    post0[:n] = srid
+                    post1[:n] = spos
+                uhash = np.full(max(u, 1), IMAX, np.int32)
+                uhash_lo = np.zeros(max(u, 1), np.int32)
+                dict0 = np.zeros(max(u, 1), np.int32)
+                dict1 = np.zeros(1 if packed_dict_bits else max(u, 1), np.int32)
+                boff = np.zeros(nb + 1, np.int32)
+                if u:
+                    uh_u = skeys[ustart].astype(np.uint64)
+                    if wide:
+                        uhash[:u] = (uh_u >> np.uint64(PB_SPLIT)).astype(np.int32)
+                        uhash_lo[:u] = (uh_u & np.uint64(PB_LOMASK)).astype(np.int32)
+                    else:
+                        uhash[:u] = (skeys[ustart].astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+                    if packed_dict_bits:
+                        dict0[:u] = (uoff[:-1] << packed_dict_bits) | np.diff(uoff)
+                    else:
+                        dict0[:u] = uoff[:-1]
+                        dict1[:u] = uoff[1:]
+                    np.add.at(boff, (uh_u >> np.uint64(hash_bits - bucket_bits)).astype(np.int64) + 1, 1)
+                    np.cumsum(boff, out=boff)
+                    kmax = max(kmax, int(np.max(np.diff(boff))))
+                for name, arr in zip(PLANES, (post0, post1, uhash, uhash_lo, dict0, dict1, boff)):
+                    planes[name].append(arr)
+            if kmax > 24:
+                return None
+            return cls(
+                **planes, rank=rank_of, mid_occ=int(index.mid_occ), n_shards=S, bucket_bits=bucket_bits,
+                bucket_kmax=(kmax + 3) // 4 * 4, packed_rid_bits=packed_rid_bits,
+                packed_dict_bits=packed_dict_bits, wide=wide,
             )
-            uoff = np.concatenate([ustart, [len(skeys)]]).astype(np.int32)
-            per_shard.append((skeys, srid, spos, ustart, uoff))
-        max_n = max([1] + [len(x[0]) for x in per_shard])
-        max_u = max([1] + [len(x[3]) for x in per_shard])
-        # one bucket width for every shard, from the largest shard's uniques
-        bucket_bits = min(max(int(np.ceil(np.log2(max(max_u, 2)))) + 2, 12), 26, hash_bits - 1)
-        nb = 1 << bucket_bits
-        max_occ = max([1] + [int(np.max(np.diff(x[4]))) for x in per_shard if len(x[3])])
-        occ_bits = max(1, max_occ.bit_length())
-        packed_dict_bits = occ_bits if max_n.bit_length() + occ_bits <= 31 else 0
-        planes = {name: [] for name in PLANES}
-        kmax = 4
-        for skeys, srid, spos, ustart, uoff in per_shard:
-            n, u = len(skeys), len(ustart)
-            post0 = np.full(max(n, 1), IMAX, np.int32)
-            post1 = np.zeros(1 if packed_rid_bits else max(n, 1), np.int32)
-            if packed_rid_bits:
-                post0[:n] = (srid << (1 + packed_rid_bits)) | spos
-            else:
-                post0[:n] = srid
-                post1[:n] = spos
-            uhash = np.full(max(u, 1), IMAX, np.int32)
-            uhash_lo = np.zeros(max(u, 1), np.int32)
-            dict0 = np.zeros(max(u, 1), np.int32)
-            dict1 = np.zeros(1 if packed_dict_bits else max(u, 1), np.int32)
-            boff = np.zeros(nb + 1, np.int32)
-            if u:
-                uh_u = skeys[ustart].astype(np.uint64)
-                if wide:
-                    uhash[:u] = (uh_u >> np.uint64(PB_SPLIT)).astype(np.int32)
-                    uhash_lo[:u] = (uh_u & np.uint64(PB_LOMASK)).astype(np.int32)
-                else:
-                    uhash[:u] = (skeys[ustart].astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
-                if packed_dict_bits:
-                    dict0[:u] = (uoff[:-1] << packed_dict_bits) | np.diff(uoff)
-                else:
-                    dict0[:u] = uoff[:-1]
-                    dict1[:u] = uoff[1:]
-                np.add.at(boff, (uh_u >> np.uint64(hash_bits - bucket_bits)).astype(np.int64) + 1, 1)
-                np.cumsum(boff, out=boff)
-                kmax = max(kmax, int(np.max(np.diff(boff))))
-            for name, arr in zip(PLANES, (post0, post1, uhash, uhash_lo, dict0, dict1, boff)):
-                planes[name].append(arr)
-        if kmax > 24:
-            return None
-        return cls(
-            **planes, rank=rank_of, mid_occ=int(index.mid_occ), n_shards=S, bucket_bits=bucket_bits,
-            bucket_kmax=(kmax + 3) // 4 * 4, packed_rid_bits=packed_rid_bits,
-            packed_dict_bits=packed_dict_bits, wide=wide,
-        )
 
     def place(self, devices, first: int = 0) -> list:
         """Shards ``first .. first + len(devices) - 1``, shard ``first + i``
@@ -163,26 +165,27 @@ class ShardedGroupedIndex:
         whose bucketed dictionary and postings are the shard's own.  Its
         ``uoff`` and ``tlen`` are dummies: the sharded lookup reads
         occurrences from the ranges, and ``-F`` never runs sharded."""
-        out = []
-        for i, dev in enumerate(devices):
-            s = first + i
-            put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-            dummy = put(np.zeros(1))
-            p0, p1, d0, d1 = self.post0[s], self.post1[s], self.dict0[s], self.dict1[s]
-            out.append(GroupedDeviceIndex(
-                rid=dummy if self.packed_rid_bits else put(p0),
-                pos=dummy if self.packed_rid_bits else put(p1),
-                rank=put(self.rank), mid_occ=self.mid_occ, uhash=put(self.uhash[s]), uoff=dummy,
-                boff=put(self.boff[s]),
-                lo=put(np.zeros((1, 1)) if self.packed_dict_bits else d0[None]),
-                hi=put(np.zeros((1, 1)) if self.packed_dict_bits else d1[None]),
-                bucket_bits=self.bucket_bits, bucket_kmax=self.bucket_kmax, n_sub=1,
-                uhash_lo=put(self.uhash_lo[s]) if self.wide else None, wide=self.wide,
-                packed_rid_bits=self.packed_rid_bits, rps=put(p0) if self.packed_rid_bits else None,
-                packed_dict_bits=self.packed_dict_bits, loocc=put(d0[None]) if self.packed_dict_bits else None,
-                tlen=dummy, cuckoo_bits=0,
-            ))
-        return out
+        with span("planes.copy"):
+            out = []
+            for i, dev in enumerate(devices):
+                s = first + i
+                put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+                dummy = put(np.zeros(1))
+                p0, p1, d0, d1 = self.post0[s], self.post1[s], self.dict0[s], self.dict1[s]
+                out.append(GroupedDeviceIndex(
+                    rid=dummy if self.packed_rid_bits else put(p0),
+                    pos=dummy if self.packed_rid_bits else put(p1),
+                    rank=put(self.rank), mid_occ=self.mid_occ, uhash=put(self.uhash[s]), uoff=dummy,
+                    boff=put(self.boff[s]),
+                    lo=put(np.zeros((1, 1)) if self.packed_dict_bits else d0[None]),
+                    hi=put(np.zeros((1, 1)) if self.packed_dict_bits else d1[None]),
+                    bucket_bits=self.bucket_bits, bucket_kmax=self.bucket_kmax, n_sub=1,
+                    uhash_lo=put(self.uhash_lo[s]) if self.wide else None, wide=self.wide,
+                    packed_rid_bits=self.packed_rid_bits, rps=put(p0) if self.packed_rid_bits else None,
+                    packed_dict_bits=self.packed_dict_bits, loocc=put(d0[None]) if self.packed_dict_bits else None,
+                    tlen=dummy, cuckoo_bits=0,
+                ))
+            return out
 
 
 def on_device(dev: torch.device):

@@ -16,9 +16,9 @@ replay of its bucket's CUDA graph (``lrge_tpu_torch/ops/program.py``):
 the script also times each bucket's replay with CUDA events (mean of
 20) and prints the replays' device time over the pass; if the profiler
 attributes no kernel inside the replays it says so, and the idle share
-comes from those replay times instead.  Under ``-P pb`` it also times
-the host sketch of the same queries (``_pb_planes``, which the pass
-runs per super-batch).  On a multi-sub index it also times, on the
+comes from those replay times instead.  Under ``-P pb`` the kernels
+listed include the query sketch's (``sketch_hpc_kernel``, once a
+super-batch inside the replays).  On a multi-sub index it also times, on the
 first super-batch of the fullest bucket, the shared lookup and each
 sub's map alone (host clock around a synchronised call, mean of 3).
 Without CUDA it exits 1.
@@ -53,6 +53,7 @@ def sub_costs(engine, names, seqs) -> None:
     from lrge_tpu_torch.ops.overlap import (
         map_found_many, minimizer_cap, pb_lookup_many, sketch_lookup_many,
     )
+    from lrge_tpu_torch.ops.sketch_torch import sketch_hpc
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
     L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
@@ -61,8 +62,9 @@ def sub_costs(engine, names, seqs) -> None:
     put = lambda a: torch.from_numpy(a).to(engine.device)
     gd, p = engine.gdev, engine.params
     if engine.pb_mode:
-        planes = engine._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
-        qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
+        planes = sketch_hpc(put(codes).reshape(-1, L), put(lengths).reshape(-1), k=p.k, w=p.w, hpc=p.hpc,
+                            max_minimizers=minimizer_cap(L))
+        qhi, qlo, mps = (x.reshape(*ids.shape, -1) for x in planes[:3])
         lookup = lambda: (pb_lookup_many(qhi, qlo, gd, hash_bits=2 * p.k, q_occ_frac=p.q_occ_frac), mps)
     else:
         codes_d, lengths_d = put(codes), put(lengths)
@@ -120,8 +122,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from lrge_tpu_torch import device_engine
-    from lrge_tpu_torch.ops import chain_kernel as ck
-    from lrge_tpu_torch.ops.overlap import minimizer_cap
+    from lrge_tpu_torch.ops.cuda_lib import LAUNCHES
     from lrge_tpu_torch.platform import Platform
     from lrge_tpu_torch.strategy import TwoSetStrategy
 
@@ -156,21 +157,16 @@ def main(argv=None) -> int:
             t = time.perf_counter() - t0
             phases = {k: round(v, 6) for k, v in engine.last_phases.items()}
             print(f"[profile] warm pass {i}: {t:.4f} s, {len(seqs) / t:.1f} q/s, last_phases {phases}", flush=True)
-        if engine.pb_mode:
-            t0 = time.perf_counter()
-            engine._pb_planes(seqs, minimizer_cap(max(engine.length_buckets)))
-            print(f"[profile] host sketch of the {len(seqs)} queries (_pb_planes): "
-                  f"{time.perf_counter() - t0:.4f} s", flush=True)
         if engine.gdev.n_sub > 1:
             sub_costs(engine, names, seqs)
-        setattr(ck.chain_dp_skip, counter, 0)
+        setattr(LAUNCHES, counter, 0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.count_batch(names, seqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = getattr(ck.chain_dp_skip, counter)
+        launches = getattr(LAUNCHES, counter)
         replays = replay_ms(engine, seqs)
     # device-side events only (the kernels), so no time counts twice
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
@@ -184,9 +180,9 @@ def main(argv=None) -> int:
     print(f"[profile] profiled pass: wall {wall * 1e3:.1f} ms, device kernels {busy:.1f} ms, "
           f"idle {100 * (1 - busy / (wall * 1e3)):.1f}%, chain kernel launches {launches}; graph replays by "
           f"CUDA events {replays:.1f} ms ({gpu_line})")
-    # the top 15, and the chain DP's own kernels wherever they rank
+    # the top 15, and the hand-written kernels wherever they rank
     for i, e in enumerate(kernels):
-        if i < 15 or "chain_dp_kernel" in e.key or "find_runs_kernel" in e.key:
+        if i < 15 or any(k in e.key for k in ("chain_dp_kernel", "find_runs_kernel", "sketch_hpc_kernel")):
             ms = device_us(e) / 1e3
             print(f"[profile] {ms:9.3f} ms {100 * ms / busy:5.1f}% {e.count:6d}x  {e.key[:100]}")
     return 0

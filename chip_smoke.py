@@ -5,8 +5,9 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the chain DP kernel (all three variants) from
-   ``lrge_tpu_torch/csrc/chain_dp.cu`` and print each instance's
+2. build the CUDA kernels (the chain DP's three variants from
+   ``lrge_tpu_torch/csrc/chain_dp.cu`` and the PacBio/HPC query sketch
+   from ``csrc/sketch_hpc.cu``, one library) and print each instance's
    registers, stack and spill (``-Xptxas -v``);
 3. each variant against its plain PyTorch version on the card, at the
    main path's shapes ([512, 4096] and [1024, 2048] anchors, W = 32),
@@ -21,7 +22,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    outputs).  Each case prints its run-length distribution, the time of
    ``chain_dp_skip`` as the path calls it, the plain version's time and
    the bound; one run of 4,096 anchors alone gives the per-anchor step
-   latency;
+   latency.  Then the sketch kernel against its plain version: a
+   super-batch of the 16,384 bucket as the PacBio path runs it (128
+   HiFi-like reads, the preset's k = 19, w = 5, HPC) and edge reads (N and
+   IUPAC bytes, runs of N, homopolymer runs that span 256 bases, ``AT``
+   repeats at even k, reads shorter than ``w + k - 1``, empty rows, more
+   minimizers than the capacity) under six parameter sets; all four
+   planes bit-equal, with the kernel's time, the plain version's and the
+   bytes bound;
 4. the main path: ``lrge_tpu_torch.cli.main`` on a synthetic 4.4 Mbp
    genome (15,000 reads, mean 2.5 kb, 5% errors, seed 6) at the
    published run shape ``-T 10000 -Q 5000``, with ``--engine auto``,
@@ -45,7 +53,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    timed pass of its engine, a ``--use-min-ref`` pair-list pass, and an
    all-vs-all pair-list pass on the first 5,000 reads of phase 7's
    subsample (``--pb-ava-reads`` sets the count), 300 rows each held
-   against the host;
+   against the host; each pass must launch the sketch kernel once a
+   super-batch (its graph replays);
 9. accurate reads: 15,000 reads of phase 4's genome at mean 10 kb and
    1% substitutions (current ONT R10.4.1 or PacBio data), ``-T 10000
    -Q 5000`` through the CLI, then for ONT and for ``-P pb`` the index,
@@ -174,8 +183,8 @@ IMAX = np.iinfo(np.int32).max
 OPS_PER_CANDIDATE = 75
 PEAK_OPS = 67e12  # H100 SXM, float32 outside the tensor cores (op/s)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (B/s)
-# each kernel variant's launch counter on ops/chain_kernel.py::chain_dp_skip
-COUNTERS = {"main": "launches", "ext": "ext_launches", "span": "span_launches"}
+# each kernel variant's launch counter in ops/cuda_lib.py::LAUNCHES
+COUNTERS = {"main": "launches", "ext": "ext_launches", "span": "span_launches", "sketch": "sketch_launches"}
 # and its tag in the printed lines
 TAGS = {"main": "kernel", "ext": "kernel ext", "span": "kernel span"}
 
@@ -319,14 +328,63 @@ def kernel_vs_plain(ck, dev, **mode):
     return recs
 
 
+def sketch_case(tag, codes, lengths, params, M):
+    """The sketch kernel against its plain version on the same ``[R, L]``
+    codes on the card, all four planes bit for bit; the kernel's time
+    (CUDA events, mean of 20), the plain version's (one call) and the
+    bytes bound (codes and lengths read once, the planes written once).
+    Returns the case's record."""
+    from lrge_tpu_torch.ops.sketch_torch import sketch_hpc, sketch_hpc_plain
+
+    R, L = codes.shape
+    kw = dict(k=params[0], w=params[1], hpc=params[2], max_minimizers=M)
+    k_ms = cuda_ms(lambda: sketch_hpc(codes, lengths, **kw))
+    got = sketch_hpc(codes, lengths, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sketch_hpc_plain(codes, lengths, **kw)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    bad = [name for name, g, w in zip(("qhi", "qlo", "mps", "mcount"), got, want) if not torch.equal(g, w)]
+    bound_ms = (R * L + 4 * R + 3 * 4 * R * M + 4 * R) / PEAK_BYTES * 1e3
+    mcount = want[3].cpu().numpy()
+    print(f"[kernel sketch] {tag} [{R}, {L}] k={params[0]} w={params[1]} hpc={params[2]} M={M}: minimizers a row "
+          f"median {np.median(mcount):.0f} max {mcount.max()} (rows above M {(mcount > M).sum()}); kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {bound_ms:.4f} ms (bytes); planes unequal {bad or 'none'}",
+          flush=True)
+    if bad:
+        fail(f"sketch kernel != plain version on {tag}: {bad}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by="bytes", max_abs_err=0)
+
+
+def sketch_vs_plain(dev):
+    """Phase 3's sketch cases (``ops/sketch_cases.py``): a super-batch of
+    the 16,384 bucket (128 HiFi-like rows, the preset's parameters), then
+    the edge reads under every parameter set at two capacities; returns
+    ``{case: record}``."""
+    from lrge_tpu_torch.ops.overlap import minimizer_cap
+    from lrge_tpu_torch.ops.sketch_cases import HPC_PARAMS, hifi_reads, hpc_edge_reads, padded_codes
+
+    put = lambda a: torch.from_numpy(a).to(dev)
+    codes, lengths = padded_codes(hifi_reads(np.random.default_rng(SEED), 128, 16384 // 2 + 1, 16384 + 1), 16384)
+    recs = {"main_path": sketch_case("hifi_16384", put(codes), put(lengths), HPC_PARAMS["pb"],
+                                     minimizer_cap(16384))}
+    codes, lengths = padded_codes(hpc_edge_reads(np.random.default_rng(SEED)), 2048)
+    for name, params in HPC_PARAMS.items():
+        for M in (64, minimizer_cap(2048)):
+            recs[f"edge_{name}_{M}"] = sketch_case(f"edge {name}", put(codes), put(lengths), params, M)
+    return recs
+
+
 def main_path_case(ck, engine, names, seqs, recs, key="main_path", **mode):
     """Phase 3's fourth case: the chain DP's inputs of one super-batch of
     ``engine``'s path (the first of the bucket with most rows; on a
-    multi-sub index its first sub) as the path builds them (ONT: the
-    device sketch; PacBio: the host planes), through the variant that
+    multi-sub index its first sub) as the path builds them (the device
+    sketch, ONT's or PacBio's), through the variant that
     ``mode`` names; adds ``key`` to ``recs`` and prints the
     critical-path floor (longest run x the step latency)."""
     from lrge_tpu_torch.ops.overlap import minimizer_cap, pb_anchors, sketch_anchors
+    from lrge_tpu_torch.ops.sketch_torch import sketch_hpc
 
     _, _, bucket_rows = engine.plan_rows(seqs, range(len(seqs)))
     L = max(bucket_rows, key=lambda x: len(bucket_rows[x]))
@@ -334,8 +392,10 @@ def main_path_case(ck, engine, names, seqs, recs, key="main_path", **mode):
     _, A, codes, lengths, ids, dual_b, selfr_b = next(engine.super_batches(L, bucket_rows[L], seqs, dual, selfr))
     put = lambda a: torch.from_numpy(a).to(engine.device)
     if engine.pb_mode:
-        planes = engine._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
-        qhi, qlo, mps = (put(a.reshape(*ids.shape, -1)) for a in planes[:3])
+        p = engine.params
+        planes = sketch_hpc(put(codes).reshape(-1, L), put(lengths).reshape(-1), k=p.k, w=p.w, hpc=p.hpc,
+                            max_minimizers=minimizer_cap(L))
+        qhi, qlo, mps = (x.reshape(*ids.shape, -1) for x in planes[:3])
         key2, rpos, qpos, valid = pb_anchors(
             qhi, qlo, mps, put(lengths), put(dual_b), put(selfr_b), engine.gdev, engine.params, num_anchors=A,
         )
@@ -415,17 +475,20 @@ class _Records(logging.Handler):
 LOGGED = "Using device overlap engine on cuda"
 
 
-def reset_counts(ck):
+def reset_counts():
+    from lrge_tpu_torch.ops.cuda_lib import LAUNCHES
     from lrge_tpu_torch.ops.program import SuperBatchProgram
 
     for attr in COUNTERS.values():
-        setattr(ck.chain_dp_skip, attr, 0)
+        setattr(LAUNCHES, attr, 0)
     SuperBatchProgram.captures = 0
     SuperBatchProgram.warmup_launches = dict.fromkeys(COUNTERS.values(), 0)
 
 
-def read_counts(ck) -> dict:
-    return {v: getattr(ck.chain_dp_skip, attr) for v, attr in COUNTERS.items()}
+def read_counts() -> dict:
+    from lrge_tpu_torch.ops.cuda_lib import LAUNCHES
+
+    return {v: getattr(LAUNCHES, attr) for v, attr in COUNTERS.items()}
 
 
 def warmup_counts() -> tuple[int, dict]:
@@ -444,7 +507,7 @@ def launch_split(counts) -> str:
     return f"replays {replays} + eager runs before {captures} captures {warm}"
 
 
-def run_cli(ck, tag, args, out, gpu_line, *, needle="", variant="main", host_equal=False):
+def run_cli(tag, args, out, gpu_line, *, needle="", variant="main", host_equal=False):
     """One CLI path with ``--engine auto``: every kernel count is set to 0
     just before it and read just after.  It must log the device engine
     (a line starting with ``LOGGED`` and holding ``needle``), launch its
@@ -459,13 +522,13 @@ def run_cli(ck, tag, args, out, gpu_line, *, needle="", variant="main", host_equ
     lg = logging.getLogger("lrge")
     lg.addHandler(records)
     lg.setLevel(logging.INFO)
-    reset_counts(ck)
+    reset_counts()
     t0 = time.perf_counter()
     try:
         rc = cli.main([*args, "-s", str(SEED), "-o", str(out)])
     finally:
         wall = time.perf_counter() - t0
-        counts = read_counts(ck)
+        counts = read_counts()
         lg.removeHandler(records)
     if rc != 0:
         fail(f"[{tag}] cli.main returned {rc}")
@@ -497,18 +560,16 @@ def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     it must launch its path's kernel variant (extent under ``-F``, span
     under PacBio; every count set to 0 just before the pass, read just
     after).  Returns ``(result, pair dict or None, report, {"qps", "peak_mib"})``."""
-    from lrge_tpu_torch.ops import chain_kernel as ck
-
     variant = "ext" if kw.get("filter_ratio") is not None else "span" if engine.pb_mode else "main"
     engine.fallback_triggers.clear()
     collected = {} if pairs else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(ck)
+    reset_counts()
     t0 = time.perf_counter()
     res = engine.count_batch(names, seqs, collect_pairs=collected, **kw)
     t = time.perf_counter() - t0
-    counts = read_counts(ck)
+    counts = read_counts()
     if counts[variant] <= 0:
         fail(f"[{tag}] the pass never launched the chain kernel's {variant} variant")
     # one replay a super-batch, n_sub launches each (a sharded index: one
@@ -517,6 +578,10 @@ def timed_pass(tag, engine, names, seqs, pairs=False, **kw):
     want = per * super_batch_count(engine, seqs)
     if counts[variant] - warmup_counts()[1][variant] != want:
         fail(f"[{tag}] {counts} launches: {launch_split(counts)}, not {per} x super-batches = {want}")
+    # the PacBio/HPC sketch: once a super-batch (a sharded index: in its query program)
+    want = super_batch_count(engine, seqs) if engine.pb_mode else 0
+    if counts["sketch"] - warmup_counts()[1]["sketch"] != want:
+        fail(f"[{tag}] {counts} launches: {launch_split(counts)}, not {want} sketch launches")
     peak = torch.cuda.max_memory_allocated()
     # the graphs' private pools are reserved, not allocated, between replays
     reserved = torch.cuda.max_memory_reserved()
@@ -574,7 +639,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
 
     tmp = fq.parent
     shape = [str(fq), "-T", str(T), "-Q", str(Q)]
-    launches = run_cli(ck, "main", shape, tmp / "est.txt", gpu_line)
+    launches = run_cli("main", shape, tmp / "est.txt", gpu_line)
 
     # the same index and queries as the CLI run (same seed and split)
     strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp / "ont")
@@ -594,7 +659,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
 
     # phase 5: -F on the same run shape
     ext_launches = run_cli(
-        ck, "filter", [*shape, "-F"], tmp / "est_f.txt", gpu_line, needle="with -F filtering", variant="ext",
+        "filter", [*shape, "-F"], tmp / "est_f.txt", gpu_line, needle="with -F filtering", variant="ext",
         host_equal=True,
     )
     engine.warmup([len(s) for s in seqs], filter_ratio=0.2)
@@ -603,7 +668,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     print(f"[filter] engine: {report} ({gpu_line})", flush=True)
 
     # phase 6: --use-min-ref (index the queries, stream the targets)
-    run_cli(ck, "inverse", [*shape, "--use-min-ref"], tmp / "est_i.txt", gpu_line, needle="for --use-min-ref")
+    run_cli("inverse", [*shape, "--use-min-ref"], tmp / "est_i.txt", gpu_line, needle="for --use-min-ref")
     if not strat.target_num_bases > strat.query_num_bases:
         fail("the inverse direction must engage: target bases <= query bases")
     inv = device_engine_on_card(strat._build_engine(queries).index, dev)
@@ -621,7 +686,7 @@ def twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext):
     return launches["main"], ext_launches["ext"], single
 
 
-def ava_path(ck, dev, gpu_line, fq):
+def ava_path(dev, gpu_line, fq):
     """Phase 7: ``-n 25000`` on the 26,000 reads of ``fq``, then the
     all-vs-all engine alone (pairs over the whole subsample, and pairs
     under ``-F`` over its first ``AVA_FILTER_READS`` reads, against the
@@ -629,7 +694,7 @@ def ava_path(ck, dev, gpu_line, fq):
     from lrge_tpu_torch.strategy import AvaStrategy
 
     tmp = fq.parent
-    run_cli(ck, "ava", [str(fq), "-n", str(AVA_N)], tmp / "est_ava.txt", gpu_line)
+    run_cli("ava", [str(fq), "-n", str(AVA_N)], tmp / "est_ava.txt", gpu_line)
     strat = AvaStrategy(fq, num_reads=AVA_N, seed=SEED, tmpdir=tmp / "ava")
     reads, _ = strat.subsample_reads()
     names = [n for n, _ in reads]
@@ -657,15 +722,15 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     main-path case of the span variant (into ``recs_span``), then the
     PacBio engine alone: a timed pass, a ``--use-min-ref`` pair-list
     pass, and an all-vs-all pair-list pass over ``ava_reads``; returns
-    the CLI's span-variant launches and the two-set engine pass (index,
-    queries, result) for phase 10."""
+    the CLI's span-variant and sketch launches and the two-set engine
+    pass (index, queries, result) for phase 10."""
     from lrge_tpu_torch.platform import Platform, preset_for
     from lrge_tpu_torch.strategy import TwoSetStrategy
     from lrge_tpu_torch.strategy.twoset import build_engine_no_fork
 
     tmp = fq.parent
     shape = [str(fq), "-T", str(T), "-Q", str(Q), "-P", "pb"]
-    launches = run_cli(ck, "pacbio", shape, tmp / "est_pb.txt", gpu_line, variant="span", host_equal=True)
+    launches = run_cli("pacbio", shape, tmp / "est_pb.txt", gpu_line, variant="span", host_equal=True)
 
     strat = TwoSetStrategy(
         fq, target_num_reads=T, query_num_reads=Q, seed=SEED, tmpdir=tmp / "pb", platform=Platform.PACBIO,
@@ -702,7 +767,7 @@ def pacbio_paths(ck, dev, gpu_line, fq, ava_reads, recs_span):
     res, pairs, report, _ = timed_pass("pacbio ava", ava, names, seqs, pairs=True)
     check_sample("pacbio ava", ava, names, seqs, res, pairs)
     print(f"[pacbio ava] engine: {report} ({gpu_line})", flush=True)
-    return launches["span"], single
+    return launches["span"], launches["sketch"], single
 
 
 def super_batch_count(engine, seqs) -> int:
@@ -770,7 +835,7 @@ def accurate_paths(ck, dev, gpu_line, fq, recs):
 
     tmp = fq.parent
     cli_out = tmp / "est.txt"
-    launches = run_cli(ck, "accurate", [str(fq), "-T", str(T), "-Q", str(Q)], cli_out, gpu_line)
+    launches = run_cli("accurate", [str(fq), "-T", str(T), "-Q", str(Q)], cli_out, gpu_line)
     for platform, tag, variant in ((Platform.NANOPORE, "accurate", "main"),
                                    (Platform.PACBIO, "accurate pacbio", "span")):
         strat = TwoSetStrategy(fq, target_num_reads=T, query_num_reads=Q, seed=SEED,
@@ -795,7 +860,7 @@ def accurate_paths(ck, dev, gpu_line, fq, recs):
             main_path_case(ck, engine, names, seqs, recs, key="accurate_path")
         engine.warmup([len(s) for s in seqs])
         res, _, report, _ = timed_pass(tag, engine, names, seqs)
-        n = read_counts(ck)[variant] - warmup_counts()[1][variant]
+        n = read_counts()[variant] - warmup_counts()[1][variant]
         sb = super_batch_count(engine, seqs)
         print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
         if n != n_sub * sb:
@@ -851,11 +916,11 @@ def check_rows_equal(tag, res, want, pairs=None, want_pairs=None):
 
 def eager_sharded_run(engine):
     """The plain version of ``engine.sharded_run``: the query side as eager
-    calls (the ONT ``sketch_core``, or the PacBio host planes) and every
+    calls (the ONT ``sketch_core``, or the PacBio ``sketch_hpc``) and every
     shard through the eager ``sharded_count``, as the engine ran them
     before its programs."""
     from lrge_tpu_torch.ops.overlap import minimizer_cap
-    from lrge_tpu_torch.ops.sketch_torch import sketch_core
+    from lrge_tpu_torch.ops.sketch_torch import sketch_core, sketch_hpc
     from lrge_tpu_torch.parallel import sharded_count
 
     def run(L, A, arrays, want_pairs=False):
@@ -865,7 +930,8 @@ def eager_sharded_run(engine):
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(engine.device).reshape(R, *a.shape[2:])
         lengths, dual, selfr = (put(a) for a in arrays[-3:])
         if engine.pb_mode:
-            q0, q1, mps, mcount = (put(a) for a in arrays[:4])
+            q0, q1, mps, mcount = sketch_hpc(put(arrays[0]), lengths, k=p.k, w=p.w, hpc=p.hpc,
+                                             max_minimizers=minimizer_cap(L))
         else:
             mhash, mpos, mstrand, mcount = sketch_core(
                 put(arrays[0]), lengths, k=p.k, w=p.w, max_minimizers=minimizer_cap(L)
@@ -889,13 +955,13 @@ def first_super_batches(engine, names, seqs, n=2):
     dual, selfr = engine.query_ranks(names)
     out = []
     for _, A, codes, lengths, ids, d, sr in engine.super_batches(L, bucket_rows[L], seqs, dual, selfr):
-        out.append((A, engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)))
+        out.append((A, engine.program_arrays(codes, lengths, d, sr)))
         if len(out) == n:
             break
     return L, out
 
 
-def sharded_pass(ck, tag, engine, names, seqs, gpu_line, want, pairs=False, want_pairs=None):
+def sharded_pass(tag, engine, names, seqs, gpu_line, want, pairs=False, want_pairs=None):
     """One warm pass of a sharded engine through its programs: timed, its
     variant launched once a shard and super-batch (replays), every row
     held to the single-device pass ``want``, 300 rows to the host; then
@@ -908,7 +974,7 @@ def sharded_pass(ck, tag, engine, names, seqs, gpu_line, want, pairs=False, want
     captures = {f"{k.branch}{'' if k.shard is None else k.shard} L={k.L}": round(p.capture_s, 3)
                 for k, p in engine.programs.items()}
     res, collected, report, rec = timed_pass(tag, engine, names, seqs, pairs=pairs)
-    n, sb = read_counts(ck)[variant], super_batch_count(engine, seqs)
+    n, sb = read_counts()[variant], super_batch_count(engine, seqs)
     print(f"[{tag}] engine: {report} ({gpu_line})", flush=True)
     if n != SHARDS * sb or warmup_counts()[0]:
         fail(f"[{tag}] {n} {variant} launches, not {SHARDS} shards x {sb} super-batches of replays")
@@ -951,14 +1017,13 @@ def rank_cli(args) -> int:
     CLI, print this rank's kernel launches on standard error, leave the
     group."""
     from lrge_tpu_torch import cli
-    from lrge_tpu_torch.ops import chain_kernel as ck
     from lrge_tpu_torch.parallel.distributed import init_from_env
 
     init_from_env(backend="gloo")
     try:
         return cli.main(args)
     finally:
-        print("rank launches " + json.dumps(read_counts(ck)), file=sys.stderr, flush=True)
+        print("rank launches " + json.dumps(read_counts()), file=sys.stderr, flush=True)
         torch.distributed.destroy_process_group()
 
 
@@ -1009,7 +1074,7 @@ def two_process_cli(fq, want_out, gpu_line):
           f"is phase 4's, rank 1 wrote nothing; wall {wall:.1f} s ({gpu_line})", flush=True)
 
 
-def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
+def sharded_paths(dev, gpu_line, fq, ont, pb, ava_reads):
     """Phase 10: (a) the sharded engine on the card over phase 4's index
     (``ont``), phase 8's PacBio index (``pb``) and an all-vs-all index of
     ``ava_reads``, each pass held row for row to the single-device engine;
@@ -1022,7 +1087,7 @@ def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
     for tag, single in (("sharded", ont), ("sharded pacbio", pb)):
         engine = sharded_engine_on_card(tag, single["index"], dev, gpu_line)
         launches["span" if engine.pb_mode else "main"] += sharded_pass(
-            ck, tag, engine, single["names"], single["seqs"], gpu_line, single["res"]
+            tag, engine, single["names"], single["seqs"], gpu_line, single["res"]
         )
         del engine
     names = [n for n, _ in ava_reads]
@@ -1033,13 +1098,13 @@ def sharded_paths(ck, dev, gpu_line, fq, ont, pb, ava_reads):
     want, want_pairs, report, _ = timed_pass("sharded ava, one device", one, names, seqs, pairs=True)
     print(f"[sharded ava] single-device engine, first {len(seqs)} reads: {report} ({gpu_line})", flush=True)
     engine = sharded_engine_on_card("sharded ava", index, dev, gpu_line)
-    launches["main"] += sharded_pass(ck, "sharded ava", engine, names, seqs, gpu_line, want, True, want_pairs)
+    launches["main"] += sharded_pass("sharded ava", engine, names, seqs, gpu_line, want, True, want_pairs)
     del engine, one
     two_process_cli(fq, fq.parent / "est.txt", gpu_line)
     return launches
 
 
-def library_run(ck, tag, configured, fq, gpu_line, device=True):
+def library_run(tag, configured, fq, gpu_line, device=True):
     """One run of the library's doc example (``configured.build(fq).estimate(True,
     LOWER_QUANTILE, UPPER_QUANTILE)``), every kernel count set to 0 just
     before it and read just after; with ``device`` it must log the device
@@ -1050,13 +1115,13 @@ def library_run(ck, tag, configured, fq, gpu_line, device=True):
     lg = logging.getLogger("lrge")
     lg.addHandler(records)
     lg.setLevel(logging.INFO)
-    reset_counts(ck)
+    reset_counts()
     t0 = time.perf_counter()
     try:
         result = configured.build(fq).estimate(True, LOWER_QUANTILE, UPPER_QUANTILE)
     finally:
         wall = time.perf_counter() - t0
-        counts = read_counts(ck)
+        counts = read_counts()
         lg.removeHandler(records)
     engaged = any(m.startswith(LOGGED) for m in records.messages)
     if device and not (engaged and counts["main"] > 0):
@@ -1069,7 +1134,7 @@ def library_run(ck, tag, configured, fq, gpu_line, device=True):
     return result, counts
 
 
-def library_paths(ck, dev, gpu_line, fq, fq_ava, cli_launches, record):
+def library_paths(dev, gpu_line, fq, fq_ava, cli_launches, record):
     """Phase 11, the library surface on the card: (a) the two-set doc
     example at phase 4's run shape must print phase 4's CLI estimate with
     as many ``BASE`` launches; (b) the all-vs-all doc example on the first
@@ -1088,7 +1153,7 @@ def library_paths(ck, dev, gpu_line, fq, fq_ava, cli_launches, record):
     # (a) two-set: the CLI's estimate and launches
     configured = (twoset.Builder().target_num_reads(T).query_num_reads(Q).seed(SEED).threads(8)
                   .engine("auto").tmpdir(tmp / "twoset"))
-    result, counts = library_run(ck, "library twoset", configured, fq, gpu_line)
+    result, counts = library_run("library twoset", configured, fq, gpu_line)
     cli_out = (fq.parent / "est.txt").read_text()
     if f"{result.estimate:.0f}\n" != cli_out:
         fail(f"[library twoset] estimate {result.estimate:.0f} != phase 4's CLI estimate {cli_out.strip()}")
@@ -1104,8 +1169,8 @@ def library_paths(ck, dev, gpu_line, fq, fq_ava, cli_launches, record):
             dst.write(src.readline())
     ava_run = lambda engine: (ava.Builder().num_reads(AVA_LIB_READS).seed(SEED).threads(8).engine(engine)
                                .tmpdir(tmp / f"ava_{engine}"))
-    result, counts = library_run(ck, "library ava", ava_run("auto"), fq_lib, gpu_line)
-    host, _ = library_run(ck, "library ava, host engine", ava_run("host"), fq_lib, gpu_line, device=False)
+    result, counts = library_run("library ava", ava_run("auto"), fq_lib, gpu_line)
+    host, _ = library_run("library ava, host engine", ava_run("host"), fq_lib, gpu_line, device=False)
     fields = lambda r: (r.estimate, r.lower, r.upper, r.no_mapping_count)
     if fields(result) != fields(host):
         fail(f"[library ava] device result {fields(result)} != the host engine's {fields(host)}")
@@ -1311,7 +1376,7 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
     batches = [(L, sb) for L, rows in bucket_rows.items() for sb in engine.super_batches(L, rows, seqs, dual, selfr)]
     t_sb = time.perf_counter() - t0
     for L, (_, _, codes, lengths, ids, d, sr) in batches:
-        engine.program_arrays(L, codes, lengths, ids, d, sr, seqs)
+        engine.program_arrays(codes, lengths, d, sr)
     t_arrays = time.perf_counter() - t0 - t_sb
     print(f"[graphs] phase 4's host batching: super_batches {t_sb:.6f} s for {len(batches)} super-batches, "
           f"program_arrays (2-bit pack) {t_arrays:.6f} s", flush=True)
@@ -1331,7 +1396,7 @@ def graph_paths(dev, gpu_line, ont, pb, multi):
           f"{json.dumps({k: round(v, 6) for k, v in rec['phases'].items()})} ({gpu_line})", flush=True)
 
 
-def bench_paths(ck, dev, gpu_line):
+def bench_paths(dev, gpu_line):
     """Phase 13: the port's benchmark (``lrge_tpu_torch/bench.py``) at its
     default size on the card, then the host-share sweep on its engine.
     The bench's tripwires hold (eager counts equal programmed ones, the
@@ -1347,11 +1412,11 @@ def bench_paths(ck, dev, gpu_line):
     it, read just after) and by schedule."""
     from lrge_tpu_torch import bench
 
-    reset_counts(ck)
+    reset_counts()
     t0 = time.perf_counter()
     run = bench.run(dev)
     wall = time.perf_counter() - t0
-    counts = read_counts(ck)
+    counts = read_counts()
     rec, ex = run.record, run.record["extra"]
     print(f"[bench] {json.dumps(rec)}", flush=True)
     engine, names, seqs = run.engine, run.corpus.qnames, run.corpus.queries
@@ -1403,6 +1468,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     from lrge_tpu_torch.ops import chain_kernel as ck
+    from lrge_tpu_torch.ops import cuda_lib
 
     gpu_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1417,16 +1483,17 @@ def main(argv=None) -> int:
         print(f"[wall] {what}: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
 
-    so = ck.build_library()
-    ck._lib()
+    so = cuda_lib.build_library()
+    cuda_lib.load()
     print(f"[build] {so.name}: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in ck.ptxas_report(so):
+    for line in cuda_lib.ptxas_report(so):
         print(f"[build] {line}", flush=True)
     phase_done("phase 2, build")
 
     recs = kernel_vs_plain(ck, dev)
     recs_ext = kernel_vs_plain(ck, dev, extents=True)
     recs_span = kernel_vs_plain(ck, dev, spans=True)
+    recs_sketch = sketch_vs_plain(dev)
     phase_done("phase 3, synthetic cases")
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         fq, fq_ava, fq_acc = (Path(tmp) / d / "reads.fq" for d in ("", "ava", "accurate"))
@@ -1438,20 +1505,22 @@ def main(argv=None) -> int:
         phase_done("corpora")
         launches, ext_launches, ont_single = twoset_paths(ck, dev, gpu_line, fq, recs, recs_ext)
         phase_done("phases 4-6, two-set ONT")
-        ava_reads = ava_path(ck, dev, gpu_line, fq_ava)
+        ava_reads = ava_path(dev, gpu_line, fq_ava)
         phase_done("phase 7, all-vs-all ONT")
-        span_launches, pb_single = pacbio_paths(ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span)
+        span_launches, pb_sketch_launches, pb_single = pacbio_paths(
+            ck, dev, gpu_line, fq, ava_reads[: args.pb_ava_reads], recs_span
+        )
         phase_done("phase 8, PacBio")
         acc_launches, acc_multi = accurate_paths(ck, dev, gpu_line, fq_acc, recs)
         phase_done("phase 9, accurate reads, multi-sub")
-        sharded_launches = sharded_paths(ck, dev, gpu_line, fq, ont_single, pb_single, ava_reads[:SHARD_AVA_READS])
+        sharded_launches = sharded_paths(dev, gpu_line, fq, ont_single, pb_single, ava_reads[:SHARD_AVA_READS])
         phase_done("phase 10, sharded engine and two processes")
-        lib_launches = library_paths(ck, dev, gpu_line, fq, fq_ava, launches, ont_single["record"])
+        lib_launches = library_paths(dev, gpu_line, fq, fq_ava, launches, ont_single["record"])
         phase_done("phase 11, library surface")
         graph_paths(dev, gpu_line, ont_single, pb_single, acc_multi)
         phase_done("phase 12, super-batch programs")
         del ont_single, pb_single, acc_multi
-        bench_launches = bench_paths(ck, dev, gpu_line)
+        bench_launches = bench_paths(dev, gpu_line)
         phase_done("phase 13, bench and host-share sweep")
     print(f"[wall] whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
@@ -1476,7 +1545,11 @@ def main(argv=None) -> int:
                     also_replaces="lrge_tpu/ops/overlap_jax.py:661-788"),
                dict(record("chain_dp_skip_span", recs_span, span_launches),
                     also_replaces="lrge_tpu/ops/overlap_jax.py:624-788 (with_spans)",
-                    sharded_path=dict(launches=sharded_launches["span"], shards=SHARDS))]
+                    sharded_path=dict(launches=sharded_launches["span"], shards=SHARDS)),
+               dict(name="sketch_hpc", route="cuda", source="lrge_tpu_torch/csrc/sketch_hpc.cu",
+                    replaces="none (lrge_tpu/device_engine.py:377-393 sketches on the host)",
+                    launches=pb_sketch_launches, max_abs_err=0, **timing(recs_sketch["main_path"]),
+                    library_ms=None)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -170,14 +170,14 @@ class Pass:
 
 
 def timed_pass(engine, names, seqs) -> Pass:
-    from .ops.chain_kernel import chain_dp_skip
+    from .ops.cuda_lib import LAUNCHES
 
     engine.fallback_triggers.clear()
-    before = chain_dp_skip.launches
+    before = LAUNCHES.launches
     t0 = time.perf_counter()
     res = engine.count_batch(names, seqs)
     dt = time.perf_counter() - t0
-    return Pass(dt, res, dict(engine.fallback_triggers), chain_dp_skip.launches - before,
+    return Pass(dt, res, dict(engine.fallback_triggers), LAUNCHES.launches - before,
                 dict(engine.last_phases), engine.last_anchors_valid, engine.last_anchor_slots, engine.last_host_s)
 
 
@@ -202,7 +202,7 @@ def run(device: torch.device) -> BenchRun:
     fires."""
     from .device_engine import DeviceOverlapEngine, host_rate_ratio
     from .estimate import median, per_read_estimate_batch
-    from .ops import chain_kernel
+    from .ops import cuda_lib
     from .ops.index import build_index
     from .ops.program import SuperBatchProgram
     from .platform import Platform, preset_for
@@ -223,7 +223,7 @@ def run(device: torch.device) -> BenchRun:
     t_index = time.perf_counter() - t0
     print(f"[bench] index build: {t_index:.2f}s ({len(index.keys)} postings)", file=sys.stderr)
 
-    kernel_cached = chain_kernel.library_path().exists() if device.type == "cuda" else None
+    kernel_cached = cuda_lib.library_path().exists() if device.type == "cuda" else None
     t0 = time.perf_counter()
     engine = DeviceOverlapEngine(index, **shape)
     sync(device)

@@ -11,8 +11,9 @@ by :meth:`DeviceOverlapEngine.warmup` or at first use, the reference's
 ``ops.overlap.sketch_map_many``, on several
 ``ops.overlap.sketch_lookup_many`` once and a map per sub
 (``ops.overlap.map_subs``); for the PacBio/HPC preset (``pb_mode``)
-host-sketched hash planes through ``ops.overlap.pb_map_many`` (wide-key
-lookup, then per sub the span chain DP with the ``min_cnt`` gate).
+the HPC sketch of the codes on the card (``ops.sketch_torch.sketch_hpc``)
+and ``ops.overlap.pb_map_many`` over its planes (wide-key lookup, then
+per sub the span chain DP with the ``min_cnt`` gate).
 Rows the device cannot guarantee exactly
 (anchor-buffer overflow, a (rid, strand) run longer than the DP window
 or a chain short of ``min_cnt``, minimizer-capacity truncation,
@@ -58,9 +59,8 @@ from .engine import OverlapEngine
 from .native import native
 from .ops.encode import make_batches
 from .ops.index import TargetIndex
-from .ops.overlap import HAD_BIT, PB_LOMASK, PB_SPLIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host
+from .ops.overlap import HAD_BIT, GroupedDeviceIndex, minimizer_cap, pack2bit_host
 from .ops.program import ProgramKey, SuperBatchProgram, program_function
-from .ops.sketch import sketch_seqs_native
 from .parallel.distributed import is_multihost
 from .parallel.sharded import ShardedGroupedIndex, sharded_count_programs
 from .spans import carry, count, current, pass_record, span
@@ -208,14 +208,9 @@ class DeviceOverlapEngine:
         # that ran the device path: last_host_s and last_phases read them
         self._call = self._device_call = None
         # PacBio/HPC preset: 2k = 38-bit keys (two int32 planes on the
-        # device) and per-minimizer spans; queries are sketched on the
-        # host by the native kernel (exact, HPC quirks included)
+        # device) and per-minimizer spans; the programs sketch the queries'
+        # codes exactly, HPC quirks included (``sketch_hpc``)
         self.pb_mode = self.params.hpc or 2 * self.params.k > 32
-        if self.pb_mode and native is None:
-            raise RuntimeError(
-                "the PacBio/HPC device path sketches queries with the native extension "
-                "(lrge_tpu_torch.native), which did not build"
-            )
         self.device_ok = len(index.keys) > 0
         self.gdev = None
         # the super-batch programs by ProgramKey, for the planes they were
@@ -356,7 +351,7 @@ class DeviceOverlapEngine:
     def triage_flags(self, live, n_anchors, cap, max_run, mcount, mcap, codes, lengths):
         """Flag rows whose device result cannot be guaranteed exact and
         tally ``fallback_triggers``; returns the "needs host recompute"
-        mask.  Under ``pb_mode`` the host sketched the rows exactly, so
+        mask.  Under ``pb_mode`` the sketch is exact for every input, so
         no row is a sketch quirk."""
         t_over = (n_anchors > cap) & live
         t_miss = (max_run > self.window) & live & ~t_over
@@ -510,30 +505,6 @@ class DeviceOverlapEngine:
         for group in self.batch_groups(L, rows_b, seqs):
             yield self.pad_group(L, group, qdualrank, qselfrid)
 
-    def _pb_planes(self, row_seqs, M):
-        """Host-sketch a batch of PacBio reads into the device lookup planes
-        (numpy): ``(qhi, qlo, mps, mcount)``, the 38-bit hash split at bit
-        19 (``qhi`` -1 on padding), ``pos << 9 | span << 1 | strand``, and
-        the true minimizer counts (rows above ``M`` go to the host)."""
-        p = self.params
-        with span("enqueue.pb_sketch"):
-            mzs = sketch_seqs_native(row_seqs, p.k, p.w, p.hpc)
-        with span("enqueue.pb_fill"):
-            n = len(row_seqs)
-            qhi = np.full((n, M), -1, dtype=np.int32)
-            qlo = np.zeros((n, M), dtype=np.int32)
-            mps = np.zeros((n, M), dtype=np.int32)
-            mcount = np.zeros(n, dtype=np.int32)
-            for i, mz in enumerate(mzs):
-                h38 = mz.key >> np.uint64(8)
-                c = min(len(h38), M)
-                mcount[i] = len(h38)
-                qhi[i, :c] = (h38 >> np.uint64(PB_SPLIT)).astype(np.int32)[:c]
-                qlo[i, :c] = (h38 & np.uint64(PB_LOMASK)).astype(np.int32)[:c]
-                mspan = (mz.key & np.uint64(0xFF)).astype(np.int32)
-                mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (mspan[:c] << 1) | mz.strand.astype(np.int32)[:c]
-        return qhi, qlo, mps, mcount
-
     def program(self, L, A, SUP, *, want_pairs=False, want_extents=False, overhang_ratio=0.2,
                 filter_mode="internal") -> SuperBatchProgram:
         """The super-batch program of bucket ``L`` (``A`` anchors, ``SUP``
@@ -579,17 +550,13 @@ class DeviceOverlapEngine:
             prog = self.programs[key] = SuperBatchProgram(key, fn, inputs, device, pool=pool, graph=self.graphs)
         return prog
 
-    def program_arrays(self, L, codes, lengths, ids, dual, selfr, seqs) -> tuple:
+    def program_arrays(self, codes, lengths, dual, selfr) -> tuple:
         """One super-batch's host arrays in the order its program takes
-        them: ONT on one sub the 2-bit packed codes, on several or on a
-        sharded index the codes; PacBio the host-sketched planes
-        (:meth:`_pb_planes`) and the true minimizer counts; then lengths,
-        dual and self ranks."""
-        if self.pb_mode:
-            planes = self._pb_planes([seqs[i] if i >= 0 else b"" for i in ids.ravel()], minimizer_cap(L))
-            qhi, qlo, mps = (a.reshape(*ids.shape, -1) for a in planes[:3])
-            return qhi, qlo, mps, planes[3].reshape(ids.shape), lengths, dual, selfr
-        if self.sharded is None and self.gdev.n_sub == 1:
+        them: ONT on one sub the 2-bit packed codes, else (ONT on several
+        subs or on a sharded index, and PacBio, which the program
+        sketches on the card) the codes; then lengths, dual and self
+        ranks."""
+        if not self.pb_mode and self.sharded is None and self.gdev.n_sub == 1:
             with span("enqueue.pack"):
                 return pack2bit_host(codes), lengths, dual, selfr
         return codes, lengths, dual, selfr
@@ -630,7 +597,9 @@ class DeviceOverlapEngine:
                     nb, A, codes, lengths, ids, dual, selfr = self.pad_group(L, group, qdualrank, qselfrid)
                 count("pad_rows", int((ids < 0).sum()))
                 count("row_slots", ids.size)
-                arrays = self.program_arrays(L, codes, lengths, ids, dual, selfr, seqs)
+                if self.pb_mode:
+                    count("pb_card_rows", int((ids >= 0).sum()))
+                arrays = self.program_arrays(codes, lengths, dual, selfr)
                 if self.sharded is not None:
                     packed, pairs = self.sharded_run(L, A, arrays, want_pairs=mode["want_pairs"])
                 else:

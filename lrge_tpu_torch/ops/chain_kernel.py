@@ -23,7 +23,7 @@ qpos`` of the chain's first anchor, int32) and ``rmf`` (running max of
 ``f`` shifted left one, with a valley bit set once ``f`` fell more than
 ``bw`` below it).  The card runs a second compiled variant of the
 kernel for it (``EXT`` in ``csrc/chain_dp.cu``) with its own launch
-counter, ``chain_dp_skip.ext_launches``.
+counter, ``LAUNCHES.ext_launches`` (``ops/cuda_lib.py``).
 
 With ``spans=True`` (the PacBio/HPC preset) each anchor carries its own
 span, packed into ``qpos`` as ``qpos << 8 | span``, and the DP is the
@@ -33,7 +33,7 @@ reference never ran in Pallas: the score takes the predecessor's span,
 running max's seed, the floor of ``f`` and ``has_pred`` take the
 current anchor's span.  Outputs are ``f``, ``broke`` and ``cnt`` (the
 chain's anchor count, for the ``min_cnt`` gate).  The card runs a
-third variant (``SPAN``) with the counter ``chain_dp_skip.span_launches``;
+third variant (``SPAN``) with the counter ``LAUNCHES.span_launches``;
 it unpacks each predecessor's span from its ring ``qpos`` and keeps the
 ``cnt`` ring that ``EXT`` keeps.
 
@@ -63,109 +63,28 @@ warps in flight; splitting rows at runs shortens the critical path to
 the longest run and fills the card.
 
 On a CPU tensor the wrapper runs :func:`chain_dp_skip_plain`; on a CUDA
-tensor it launches the kernel or raises.  Inside a CUDA graph
-(``ops/program.py``) the wrapper runs once, at capture, and the graph's
-replays launch the kernel: :func:`recorded_launches` and
-:func:`add_launches` keep the counters meaning launches on the card.
+tensor it launches the kernel or raises.  The kernel is built into the
+port's one CUDA library (``ops/cuda_lib.py``), which also keeps the
+launch counters right under CUDA graphs' replays.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..spans import span
+from .cuda_lib import LAUNCHES, check_int32, load
 
 NEG = int(np.iinfo(np.int32).min // 2)
 IMAX = int(np.iinfo(np.int32).max)
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "chain_dp.cu"
-_BUILD = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-    # the score's f32 products and sums must round exactly like the
-    # reference's unfused ops
-    "-fmad=false",
-    # registers, stack and spill of each instance, kept beside the library
-    "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path() -> Path:
-    """Where :func:`build_library` puts the library of this source and flags."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"chain_dp-{digest}.so"
-
-
-def build_library() -> Path:
-    """Compile ``csrc/chain_dp.cu`` (once per source hash) and return the .so path."""
-    so = library_path()
-    if so.exists():
-        return so
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    so.with_suffix(".ptxas.txt").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
-
-
-# the kernel's variants, by their template index in csrc/chain_dp.cu
-VARIANTS = ("base", "ext", "span")
-
-
-def ptxas_report(so: Path) -> list[str]:
-    """One line per kernel instance from the build's ``-Xptxas -v``
-    output: ``W=32 span: 40 registers, 0 B stack, 0 B spill stores,
-    0 B spill loads`` (``find_runs span: ...`` for the run finder)."""
-    text = so.with_suffix(".ptxas.txt").read_text()
-    out, name, frame = [], None, ""
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\S*chain_dp_kernelILi(\d+)ELi(\d)E", line)
-        if m:
-            name = f"W={m.group(1)} {VARIANTS[int(m.group(2))]}"
-        m = re.search(r"Compiling entry function '\S*find_runs_kernelILi(\d)E", line)
-        if m:
-            name = f"find_runs {VARIANTS[int(m.group(1))]}"
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            frame = f"{m.group(1)} B stack, {m.group(2)} B spill stores, {m.group(3)} B spill loads"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {frame}")
-            name, frame = None, ""
-    return out
-
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    with span("load", lib="chain_dp"):
-        lib = ctypes.CDLL(str(build_library()))
+    lib = load()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # key2, rpos, qpos, valid, nvalid, work, B, A, pen_gap, span,
     # max_gap, bw, max_skip, window, outputs..., stream
@@ -176,17 +95,6 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.chain_dp_skip_launch, lib.chain_dp_skip_ext_launch, lib.chain_dp_skip_span_launch):
         fn.restype = I
     return lib
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def chain_dp_skip(
@@ -211,10 +119,10 @@ def chain_dp_skip(
     ``cnt`` (``[B, A]`` int32 each)."""
     B, A = key2.shape
     dev = key2.device
-    _check("key2", key2, (B, A), dev)
+    check_int32("key2", key2, (B, A), dev)
     for name, x in (("rpos", rpos), ("qpos", qpos), ("valid", valid)):
-        _check(name, x, (B, A), dev)
-    _check("nvalid", nvalid, (B,), dev)
+        check_int32(name, x, (B, A), dev)
+    check_int32("nvalid", nvalid, (B,), dev)
     if window not in (16, 32, 64, 128):
         raise ValueError(f"window must be 16, 32, 64 or 128, got {window}")
     if extents and spans:
@@ -249,45 +157,12 @@ def chain_dp_skip(
     if err != 0:
         raise RuntimeError(f"chain_dp_skip launch failed: CUDA error {err}")
     if extents:
-        chain_dp_skip.ext_launches += 1
+        LAUNCHES.ext_launches += 1
     elif spans:
-        chain_dp_skip.span_launches += 1
+        LAUNCHES.span_launches += 1
     else:
-        chain_dp_skip.launches += 1
+        LAUNCHES.launches += 1
     return tuple(outs)
-
-
-chain_dp_skip.launches = 0  # the main path's variant
-chain_dp_skip.ext_launches = 0  # the extent (-F) variant
-chain_dp_skip.span_launches = 0  # the span (PacBio/HPC) variant
-COUNTERS = ("launches", "ext_launches", "span_launches")
-
-
-def launch_counts(counters=chain_dp_skip) -> dict:
-    """The launch counters' values, by name."""
-    return {c: getattr(counters, c) for c in COUNTERS}
-
-
-def recorded_launches(capture, counters=chain_dp_skip):
-    """Call ``capture()``, a CUDA graph capture, and return ``(its result,
-    the launches it recorded by counter)``.  The wrapper counted those
-    launches, but a capture records kernels into the graph and runs none,
-    so the counters are put back as they were; each replay adds them
-    (:func:`add_launches`), because a replay does not run the wrapper."""
-    before = launch_counts(counters)
-    try:
-        out = capture()
-        recorded = {c: n - before[c] for c, n in launch_counts(counters).items()}
-    finally:
-        for c, n in before.items():
-            setattr(counters, c, n)
-    return out, recorded
-
-
-def add_launches(recorded: dict, counters=chain_dp_skip) -> None:
-    """Add one replay's launches (:func:`recorded_launches`) to the counters."""
-    for c, n in recorded.items():
-        setattr(counters, c, getattr(counters, c) + n)
 
 
 def _mg_log2(x: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,7 @@ import torch
 
 from ..spans import span
 from .chain_kernel import IMAX, chain_dp_skip
-from .sketch_torch import INF, sketch_core
+from .sketch_torch import INF, PB_LOMASK, PB_SPLIT, sketch_core
 
 logger = logging.getLogger("lrge")
 
@@ -54,10 +54,6 @@ logger = logging.getLogger("lrge")
 PAIR_CAP = 512
 # under -F the count plane carries the pre-filter "had any mapping" bit here
 HAD_BIT = 24
-# wide (PacBio/HPC, 2k = 38-bit) hashes ride in two int32 planes: hi =
-# hash >> PB_SPLIT, lo = hash & PB_LOMASK (overlap_jax.py:2229-2230)
-PB_SPLIT = 19
-PB_LOMASK = (1 << PB_SPLIT) - 1
 
 # ---------------------------------------------------------------------------
 # numpy builders, copied from lrge_tpu/ops/overlap_jax.py

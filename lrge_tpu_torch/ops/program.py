@@ -23,7 +23,9 @@ device:
   either filter mode);
 * ``"ont_multi"``, several sub-indexes: ``sketch_lookup_many`` over
   the unpacked codes, then ``map_subs``;
-* ``"pacbio"``: ``pb_map_many`` over the host-sketched planes.
+* ``"pacbio"``: the PacBio/HPC sketch of the codes (``sketch_hpc``,
+  the CUDA kernel ``csrc/sketch_hpc.cu`` on the card), then
+  ``pb_map_many`` over its planes.
 
 On a sharded index (``parallel/sharded.py``) a super-batch is one
 ``"query"`` program on the home device and one ``"shard"`` program a
@@ -33,9 +35,9 @@ so two shards on one card get two programs):
 * ``"query"``: the query side, once a super-batch: under ONT the
   sketch of the unpacked codes (the reference's ``sketch_many`` ahead
   of ``_sharded_group``, ``lrge_tpu/device_engine.py:954-956``), then
-  ``query_keep``; under PacBio ``query_keep`` over the host planes.  It
-  returns the shard programs' int32 inputs over the flattened rows and
-  the minimizer counts;
+  ``query_keep``; under PacBio the PacBio/HPC sketch of the codes, then
+  ``query_keep``.  It returns the shard programs' int32 inputs over the
+  flattened rows and the minimizer counts;
 * ``"shard"``: one shard's work, ``shard_count`` (probe, ranges, the
   ``occ <= mid_occ`` gate, ``map_found_core``), narrow or wide by the
   shard's planes; its inputs are filled from the query program's
@@ -73,9 +75,9 @@ import torch
 
 from ..parallel.sharded import query_keep, shard_count
 from ..spans import span
-from .chain_kernel import COUNTERS, add_launches, launch_counts, recorded_launches
+from .cuda_lib import COUNTERS, add_launches, launch_counts, recorded_launches
 from .overlap import map_subs, minimizer_cap, pb_map_many, sketch_lookup_many, sketch_map_many
-from .sketch_torch import sketch_core
+from .sketch_torch import sketch_core, sketch_hpc
 
 BRANCHES = ("ont", "ont_multi", "pacbio", "query", "shard")
 
@@ -139,21 +141,30 @@ def program_function(key: ProgramKey, gi, params, *, window: int):
 
         return fn, [((*rows, key.L), torch.uint8, 4), *row_inputs]
 
-    def fn(qhi, qlo, mps, mcount, lengths, dual, selfr):
-        return pb_map_many(
-            qhi, qlo, mps, mcount, lengths, dual, selfr, gi, params, num_anchors=A, window=W, want_pairs=pairs,
-        )
+    def fn(codes, lengths, dual, selfr):
+        planes = pb_sketch(codes, lengths, params, key)
+        return pb_map_many(*planes, lengths, dual, selfr, gi, params, num_anchors=A, window=W, want_pairs=pairs)
 
-    planes = (*rows, minimizer_cap(key.L))
-    return fn, [(planes, torch.int32, -1), (planes, torch.int32, 0), (planes, torch.int32, 0),
-                (rows, torch.int32, 0), *row_inputs]
+    return fn, [((*rows, key.L), torch.uint8, 4), *row_inputs]
+
+
+def pb_sketch(codes, lengths, params, key: ProgramKey) -> tuple:
+    """The PacBio/HPC sketch of a super-batch's codes ``[SUP, B, L]``
+    (:func:`~lrge_tpu_torch.ops.sketch_torch.sketch_hpc` over its ``R =
+    SUP * B`` rows): ``(qhi, qlo, mps)`` ``[SUP, B, M]`` and ``mcount``
+    ``[SUP, B]``, int32."""
+    R, M = key.SUP * key.B, minimizer_cap(key.L)
+    qhi, qlo, mps, mcount = sketch_hpc(
+        codes.reshape(R, key.L), lengths.reshape(R), k=params.k, w=params.w, hpc=params.hpc, max_minimizers=M,
+    )
+    return (*(x.reshape(key.SUP, key.B, M) for x in (qhi, qlo, mps)), mcount.reshape(key.SUP, key.B))
 
 
 def _query_function(key: ProgramKey, gi, params):
     """The query side of a sharded super-batch over ``R = SUP * B`` rows,
     on the home device.  It takes what the single-device ``"ont_multi"``
-    (unpacked codes) or ``"pacbio"`` (host planes) program takes and
-    returns the shard programs' inputs, int32: ``(q0, q1, mps, keep, qlen,
+    and ``"pacbio"`` programs take (the unpacked codes) and returns the
+    shard programs' inputs, int32: ``(q0, q1, mps, keep, qlen,
     qdual, qself)`` (``q0`` the narrow hash, its ``0xFFFFFFFF`` padding
     wrapped to -1, and ``q1`` None; or the wide ``qhi``/``qlo``), then the
     ``[R]`` minimizer counts.  ``gi`` gives ``mid_occ`` and ``wide``."""
@@ -177,14 +188,13 @@ def _query_function(key: ProgramKey, gi, params):
 
         return fn, [((*rows, key.L), torch.uint8, 4), *row_inputs]
 
-    def fn(qhi, qlo, mps, mcount, lengths, dual, selfr):
+    def fn(codes, lengths, dual, selfr):
+        qhi, qlo, mps, mcount = pb_sketch(codes, lengths, p, key)
         qhi, qlo, mps = (x.reshape(R, M) for x in (qhi, qlo, mps))
         keep = query_keep(qhi.long(), qlo.long(), gi.mid_occ, p.q_occ_frac, True)
         return qhi, qlo, mps, keep.to(torch.int32), *flat(lengths, dual, selfr, mcount)
 
-    planes = (*rows, M)
-    return fn, [(planes, torch.int32, -1), (planes, torch.int32, 0), (planes, torch.int32, 0),
-                (rows, torch.int32, 0), *row_inputs]
+    return fn, [((*rows, key.L), torch.uint8, 4), *row_inputs]
 
 
 def _shard_function(key: ProgramKey, gi, params, window: int):
@@ -219,8 +229,8 @@ class SuperBatchProgram:
     ``graph`` is False; else an eager call.  :meth:`run` feeds it one
     super-batch."""
 
-    # chain DP launches of the eager runs before each capture, by counter:
-    # real launches, already in the wrapper's counters; with ``captures``
+    # kernel launches of the eager runs before each capture, by counter:
+    # real launches, already in the wrappers' counters; with ``captures``
     # they tell those runs from replays in a pass's count
     captures = 0
     warmup_launches = dict.fromkeys(COUNTERS, 0)
@@ -232,7 +242,7 @@ class SuperBatchProgram:
         self.inputs = tuple(torch.full(shape, fill, dtype=dtype, device=device) for shape, dtype, fill in inputs)
         self.graph = None
         self.outputs = None  # the static outputs, a tuple (None where fn has no such output)
-        self.launches = dict.fromkeys(COUNTERS, 0)  # the chain DP launches a replay makes
+        self.launches = dict.fromkeys(COUNTERS, 0)  # the kernel launches a replay makes
         self._capture_span = None
         if device.type == "cuda" and graph:
             with span("capture", key=key) as self._capture_span:

@@ -225,15 +225,13 @@ def _lockstep_count(dev, names: list, seqs: list):
                 ids[0, : len(block)] = block
                 live = ids >= 0
                 lengths = np.array([[len(seqs[i]) if i >= 0 else 0 for i in ids[0]]], dtype=np.int32)
-                codes = None
-                if not dev.pb_mode:
-                    codes = np.full((1, b_loc, L), 4, dtype=np.uint8)
-                    for r, i in enumerate(block):
-                        codes[0, r, : lengths[0, r]] = encode_seq(seqs[i])
+                codes = np.full((1, b_loc, L), 4, dtype=np.uint8)
+                for r, i in enumerate(block):
+                    codes[0, r, : lengths[0, r]] = encode_seq(seqs[i])
                 dual = np.where(live, qdualrank[ids], 0).astype(np.int32)
                 selfr = np.where(live, qselfrid[ids], -1).astype(np.int32)
                 query, shards = dev.shard_programs(L, A, 1, b_loc)
-                *planes, mcount = query.run(*dev.program_arrays(L, codes, lengths, ids, dual, selfr, seqs))
+                *planes, mcount = query.run(*dev.program_arrays(codes, lengths, dual, selfr))
                 inflight.append((ids[0], L, A, codes, lengths[0], mcount, ring_count(shards, *planes)))
         logger.debug(
             "lockstep count: process %d/%d, %d blocks in flight, triaged after the last dispatch",
@@ -243,9 +241,7 @@ def _lockstep_count(dev, names: list, seqs: list):
         for ids, L, A, codes, lengths, mcount, outs in inflight:
             c, a, r, mc = (x.cpu().numpy() for x in (*outs, mcount))
             live = ids >= 0
-            needs = dev.triage_flags(
-                live, a, A, r, mc, minimizer_cap(L), None if codes is None else codes[0], lengths,
-            )
+            needs = dev.triage_flags(live, a, A, r, mc, minimizer_cap(L), codes[0], lengths)
             retry.extend(ids[needs].tolist())
             ok = live & ~needs
             counts[ids[ok]] = c[ok]

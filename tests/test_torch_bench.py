@@ -237,7 +237,7 @@ def test_host_share_default_and_overrides(tiny_engine, monkeypatch, cores):
 def test_programmed_and_eager_counts_equal_on_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the chain DP has no CPU mode there")
-    from lrge_tpu_torch.ops.chain_kernel import chain_dp_skip
+    from lrge_tpu_torch.ops.cuda_lib import LAUNCHES
     from lrge_tpu_torch.ops.index import build_index
     from lrge_tpu_torch.platform import Platform, preset_for
 
@@ -250,9 +250,9 @@ def test_programmed_and_eager_counts_equal_on_card(monkeypatch):
         engine = port_engine.DeviceOverlapEngine(index, device=dev, batch_size=128, num_anchors=4096,
                                                  graphs=graphs)
         engine.warmup([len(q) for q in c.queries])
-        before = chain_dp_skip.launches
+        before = LAUNCHES.launches
         res = engine.count_batch(c.qnames, c.queries)
-        assert chain_dp_skip.launches > before
+        assert LAUNCHES.launches > before
         assert all((p.graph is not None) == graphs for p in engine.programs.values()) and engine.programs
         out[graphs] = res
     np.testing.assert_array_equal(out[True].counts, out[False].counts)

@@ -15,7 +15,8 @@ seeded corpus (``tests/test_torch_knobs.py``'s) and small shapes:
     any output is read, and each output equals, bit for bit: on one ONT
     sub-index, ``lrge_tpu.ops.overlap_jax.sketch_map_many`` (jitted, on
     the CPU), pair planes too; on a multi-sub index and under PacBio, the
-    port's eager ``map_subs``/``pb_map_many`` on the same inputs (which
+    port's eager ``map_subs``/``pb_map_many`` (after ``sketch_hpc``) on
+    the same inputs (which
     ``tests/test_torch_multisub.py`` and ``tests/test_torch_pacbio.py``
     hold to the reference);
 (c) the engine's program cache: the same mode reuses its program, another
@@ -45,8 +46,9 @@ from lrge_tpu.ops.index import build_index
 from lrge_tpu.platform import Platform, preset_for
 from lrge_tpu_torch.device_engine import DeviceOverlapEngine
 from lrge_tpu_torch.ops import overlap as port
-from lrge_tpu_torch.ops.chain_kernel import add_launches, launch_counts, recorded_launches
+from lrge_tpu_torch.ops.cuda_lib import add_launches, launch_counts, recorded_launches
 from lrge_tpu_torch.ops.program import ProgramKey, SuperBatchProgram, program_function
+from lrge_tpu_torch.ops.sketch_torch import sketch_hpc
 
 CPU = torch.device("cpu")
 PKG = Path(port.__file__).resolve().parent.parent
@@ -90,7 +92,7 @@ def super_batches(engine, names, seqs):
     out = {}
     for L, rows in bucket_rows.items():
         out[L] = [
-            (A, ids.shape[0], engine.program_arrays(L, codes, lengths, ids, d, s, seqs))
+            (A, ids.shape[0], engine.program_arrays(codes, lengths, d, s))
             for _, A, codes, lengths, ids, d, s in engine.super_batches(L, rows, seqs, dual, selfr)
         ]
     return out
@@ -183,9 +185,14 @@ def eager(engine, arrays, A, want_pairs=False):
     """The port's eager multi-sub or PacBio pipeline on the same arrays."""
     t = [torch.from_numpy(a) for a in arrays]
     kw = dict(num_anchors=A, window=engine.window, want_pairs=want_pairs)
-    if engine.pb_mode:
-        return port.pb_map_many(*t, engine.gdev, engine.params, **kw)
     codes, lengths, dual, selfr = t
+    if engine.pb_mode:
+        p = engine.params
+        SUP, B, L = codes.shape
+        planes = sketch_hpc(codes.reshape(SUP * B, L), lengths.reshape(SUP * B), k=p.k, w=p.w, hpc=p.hpc,
+                            max_minimizers=port.minimizer_cap(L))
+        planes = [x.reshape(SUP, B, -1) for x in planes[:3]] + [planes[3].reshape(SUP, B)]
+        return port.pb_map_many(*planes, lengths, dual, selfr, engine.gdev, p, **kw)
     found, mps, mcount = port.sketch_lookup_many(codes, lengths, engine.gdev, engine.params)
     return port.map_subs(found, mps, mcount, lengths, dual, selfr, engine.gdev, engine.params, **kw)
 
@@ -246,22 +253,23 @@ def test_program_cache(corpus):  # noqa: F811
 
 
 def test_launch_counters_under_replay():
-    stub = SimpleNamespace(launches=5, ext_launches=0, span_launches=2)
+    stub = SimpleNamespace(launches=5, ext_launches=0, span_launches=2, sketch_launches=2)
 
     def capture():
-        # what the wrapper counts while a capture records two BASE and one
-        # SPAN launch into the graph
+        # what the wrappers count while a capture records two BASE, one
+        # SPAN and one sketch launch into the graph
         stub.launches += 2
         stub.span_launches += 1
+        stub.sketch_launches += 1
         return "graph"
 
     out, recorded = recorded_launches(capture, stub)
-    assert out == "graph" and recorded == {"launches": 2, "ext_launches": 0, "span_launches": 1}
+    assert out == "graph" and recorded == {"launches": 2, "ext_launches": 0, "span_launches": 1, "sketch_launches": 1}
     # the capture ran nothing on the card
-    assert launch_counts(stub) == {"launches": 5, "ext_launches": 0, "span_launches": 2}
+    assert launch_counts(stub) == {"launches": 5, "ext_launches": 0, "span_launches": 2, "sketch_launches": 2}
     for _ in range(3):
         add_launches(recorded, stub)
-    assert launch_counts(stub) == {"launches": 11, "ext_launches": 0, "span_launches": 5}
+    assert launch_counts(stub) == {"launches": 11, "ext_launches": 0, "span_launches": 5, "sketch_launches": 5}
 
     def failed():
         stub.ext_launches += 1
@@ -269,7 +277,7 @@ def test_launch_counters_under_replay():
 
     with pytest.raises(RuntimeError, match="capture failed"):
         recorded_launches(failed, stub)
-    assert launch_counts(stub) == {"launches": 11, "ext_launches": 0, "span_launches": 5}
+    assert launch_counts(stub) == {"launches": 11, "ext_launches": 0, "span_launches": 5, "sketch_launches": 5}
 
 
 def test_program_static_buffers():

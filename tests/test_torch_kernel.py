@@ -1,19 +1,26 @@
-"""The chain DP wrapper and the CUDA kernel (imports only the port: runs on the card too).
+"""The CUDA kernels' wrappers (imports only the port: runs on the card too).
 
-On the CPU: the wrapper's input checks and its per-row stop, the span
-variant's plain version at a constant span (it must be the main one's,
-with the extent variant's ``cnt``), and the build report's parse of
-every kernel instance.  On a CUDA card (marker ``gpu``; skipped without
-one): each variant equals its plain version bit for bit at every
-window and on rows of the largest bucket's length, and the device
-engine's counts equal the exact host engine's (ONT and PacBio, one
-sub-index and several, and a sharded index on the card twice), and the
-super-batch programs, single-device and sharded, replay what their eager
-functions compute; a capture that fails raises, naming its program.  On
-the card:
+On the CPU: the chain DP wrapper's input checks and its per-row stop,
+the span variant's plain version at a constant span (it must be the
+main one's, with the extent variant's ``cnt``), the PacBio/HPC sketch
+wrapper's input checks, and the build report's parse of every kernel
+instance.  On a CUDA card (marker ``gpu``; skipped without one): each
+chain DP variant equals its plain version bit for bit at every window
+and on rows of the largest bucket's length; the sketch kernel equals
+its plain version on the edge reads and under every parameter set of
+``ops/sketch_cases.py`` and on a super-batch of HiFi-like
+reads filling the 16,384 bucket; the device engine's counts equal the
+exact host engine's (ONT and PacBio, one sub-index and several, a
+sharded index on the card twice, and a PacBio engine over
+homopolymer-rich reads with ambiguous bases, its queries sketched on
+the card once a super-batch); and the super-batch programs,
+single-device and sharded, replay what their eager functions compute; a
+capture that fails raises, naming its program.  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernel.py
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,12 +31,23 @@ torch.set_num_threads(1)
 
 from lrge_tpu_torch.device_engine import DeviceOverlapEngine
 from lrge_tpu_torch.engine import OverlapEngine
-from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip, chain_dp_skip_plain, ptxas_report
+from lrge_tpu_torch.ops.chain_kernel import NEG, chain_dp_skip, chain_dp_skip_plain
+from lrge_tpu_torch.ops.cuda_lib import LAUNCHES, ptxas_report
 from lrge_tpu_torch.ops.index import build_index
+from lrge_tpu_torch.ops.overlap import minimizer_cap
+from lrge_tpu_torch.ops.sketch_cases import HPC_PARAMS, hifi_reads, hpc_edge_reads, padded_codes
+from lrge_tpu_torch.ops.sketch_torch import sketch_hpc, sketch_hpc_plain
 from lrge_tpu_torch.platform import AVA_ONT, Platform, preset_for
 
 KW = dict(span=15, max_gap=AVA_ONT.max_gap, bw=AVA_ONT.bw, max_skip=25)
 IMAX = np.iinfo(np.int32).max
+def hpc_planes(seqs, params, M, device=torch.device("cpu"), sketch=sketch_hpc):
+    """``(qhi, qlo, mps, mcount)`` (numpy) of ``sketch`` over ``seqs``,
+    padded to the longest read (code 4), on ``device``."""
+    codes, lengths = padded_codes(seqs)
+    out = sketch(torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device), k=params.k,
+                 w=params.w, hpc=params.hpc, max_minimizers=M)
+    return tuple(x.cpu().numpy() for x in out)
 
 
 def anchor_rows(rng, B, A, *, colinear=False):
@@ -111,17 +129,18 @@ def test_ptxas_report_names_every_instance(tmp_path):
     # the build's -Xptxas -v log, one instance of each kernel and variant
     lines = []
     for name in ("chain_dp_kernelILi32ELi0EEEvNS_4ArgsEPKyPKiS5_Pi", "chain_dp_kernelILi64ELi2EEEvNS_4ArgsE",
-                 "find_runs_kernelILi1EEEvNS_4ArgsEPyPiS3_"):
+                 "find_runs_kernelILi1EEEvNS_4ArgsEPyPiS3_", "sketch_hpc_kernelEPKhPKiiiiiiPiS4_S4_S4_"):
         lines += [
             f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115{name}' for 'sm_90a'",
             "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
             "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
             "ptxas info    : Used 40 registers, used 0 barriers, 456 bytes cmem[0]",
         ]
-    so = tmp_path / "chain_dp-x.so"
+    so = tmp_path / "kernels-x.so"
     so.with_suffix(".ptxas.txt").write_text("\n".join(lines))
     frame = "40 registers, 8 B stack, 4 B spill stores, 12 B spill loads"
-    assert ptxas_report(so) == [f"W=32 base: {frame}", f"W=64 span: {frame}", f"find_runs ext: {frame}"]
+    assert ptxas_report(so) == [f"W=32 base: {frame}", f"W=64 span: {frame}", f"find_runs ext: {frame}",
+                                f"sketch_hpc: {frame}"]
 
 
 @pytest.mark.parametrize(
@@ -146,6 +165,92 @@ def test_wrapper_rejects_bad_inputs(bad, match):
         chain_dp_skip(*good, AVA_ONT.chn_pen_gap(), window=32, extents=True, spans=True, **KW)
 
 
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        (dict(k=26), "k must be"), (dict(w=256), "w must be"), (dict(w=0), "w must be"),
+        (dict(codes=torch.zeros((2, 8), dtype=torch.int32)), "uint8"),
+        (dict(lengths=torch.zeros(2, dtype=torch.int64)), "int32"),
+        (dict(lengths=torch.zeros(3, dtype=torch.int32)), "shape"),
+    ],
+)
+def test_sketch_wrapper_rejects_bad_inputs(kw, match):
+    args = dict(codes=torch.zeros((2, 8), dtype=torch.uint8), lengths=torch.full((2,), 8, dtype=torch.int32),
+                k=19, w=5, hpc=True, max_minimizers=128)
+    args.update(kw)
+    with pytest.raises((TypeError, ValueError), match=match):
+        sketch_hpc(**args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HPC_PARAMS))
+def test_cuda_sketch_kernel_matches_plain(case):
+    # the edge reads, at a capacity that the long reads overflow (their
+    # true counts kept) and at the 2,048 bucket's
+    need_cuda()
+    k, w, hpc = HPC_PARAMS[case]
+    params = SimpleNamespace(k=k, w=w, hpc=hpc)
+    seqs = hpc_edge_reads(np.random.default_rng(7))
+    for M in (64, minimizer_cap(2048)):
+        before = LAUNCHES.sketch_launches
+        got = hpc_planes(seqs, params, M, torch.device("cuda"))
+        assert LAUNCHES.sketch_launches == before + 1
+        want = hpc_planes(seqs, params, M)
+        for g, w_, what in zip(got, want, ("qhi", "qlo", "mps", "mcount")):
+            np.testing.assert_array_equal(g, w_, err_msg=f"{case} M={M} {what}")
+    assert (want[3] > 64).any() and (want[3] == 0).any()
+
+
+@pytest.mark.gpu
+def test_cuda_sketch_kernel_full_bucket_matches_plain():
+    # a super-batch of the 16,384 bucket as the PacBio path runs it: 128
+    # HiFi-like rows, the preset's parameters
+    need_cuda()
+    params = preset_for(Platform.PACBIO, dual=True)
+    seqs = hifi_reads(np.random.default_rng(16384), 128, 8193, 16384)
+    M = minimizer_cap(16384)
+    got = hpc_planes(seqs, params, M, torch.device("cuda"))
+    want = hpc_planes(seqs, params, M, torch.device("cuda"), sketch=sketch_hpc_plain)
+    for g, w_, what in zip(got, want, ("qhi", "qlo", "mps", "mcount")):
+        np.testing.assert_array_equal(g, w_, err_msg=what)
+    assert want[3].min() > 500 and (want[3] <= M).all()
+
+
+@pytest.mark.gpu
+def test_pacbio_engine_sketches_on_card_and_matches_host():
+    # homopolymer-rich reads with ambiguous bases through a PacBio engine
+    # on the card (CUDA graphs): the counts are the host engine's, the
+    # sketch kernel runs once a super-batch, every live device row is a
+    # pb_card_rows row, and no row goes to the host for its sketch
+    need_cuda()
+    from lrge_tpu_torch import spans
+
+    rng = np.random.default_rng(4096)
+    reads = hifi_reads(rng, 150, 1500, 3500, genome_len=120_000)
+    for i in range(0, 150, 7):
+        s = bytearray(reads[i])
+        s[int(rng.integers(0, len(s)))] = ord("N")
+        reads[i] = bytes(s)
+    targets, queries = reads[:100], reads[100:]
+    tnames = [b"t%d" % i for i in range(100)]
+    qnames = [b"q%d" % i for i in range(50)]
+    index = build_index(targets, tnames, preset_for(Platform.PACBIO, dual=True))
+    dev = DeviceOverlapEngine(index, device=torch.device("cuda"), batch_size=8, length_buckets=(2048, 4096))
+    assert dev.pb_mode and dev.graphs
+    dev.warmup([len(q) for q in queries])
+    before = LAUNCHES.sketch_launches
+    res = dev.count_batch(qnames, queries)
+    _, _, bucket_rows = dev.plan_rows(queries, range(len(queries)))
+    n_super = sum(-(-len(r) // (8 * dev.bucket_shape(L)[1])) for L, r in bucket_rows.items() if r)
+    assert LAUNCHES.sketch_launches - before == n_super
+    assert spans.passes[-1].counters["pb_card_rows"] == sum(len(r) for r in bucket_rows.values())
+    assert "sketch_quirk" not in dev.fallback_triggers
+    host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
+    np.testing.assert_array_equal(res.counts, [c for c, _ in host])
+    np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
+    assert (res.counts > 0).sum() > 25
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [16, 32, 64, 128])
 def test_cuda_kernel_matches_plain(window):
@@ -153,10 +258,10 @@ def test_cuda_kernel_matches_plain(window):
     for seed, colinear in ((0, False), (7, True)):
         args = anchor_rows(np.random.default_rng(seed), 37, 300, colinear=colinear)
         args.append(args[3].sum(dim=1).to(torch.int32))
-        before = chain_dp_skip.launches
+        before = LAUNCHES.launches
         f, broke = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window, **KW)
         torch.cuda.synchronize()
-        assert chain_dp_skip.launches == before + 1
+        assert LAUNCHES.launches == before + 1
         f_ref, broke_ref = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, **KW)
         assert torch.equal(f.cpu(), f_ref) and torch.equal(broke.cpu(), broke_ref)
         if colinear and window >= 64:
@@ -171,10 +276,10 @@ def test_cuda_extent_kernel_matches_plain(window):
         args = anchor_rows(np.random.default_rng(seed), 37, 300, colinear=colinear)
         put_valley_row(args)
         args.append(args[3].sum(dim=1).to(torch.int32))
-        before, before_main = chain_dp_skip.ext_launches, chain_dp_skip.launches
+        before, before_main = LAUNCHES.ext_launches, LAUNCHES.launches
         got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window, extents=True, **KW)
         torch.cuda.synchronize()
-        assert chain_dp_skip.ext_launches == before + 1 and chain_dp_skip.launches == before_main
+        assert LAUNCHES.ext_launches == before + 1 and LAUNCHES.launches == before_main
         want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, extents=True, **KW)
         for name, g, w in zip(("f", "broke", "cnt", "start", "rmf"), got, want):
             assert torch.equal(g.cpu(), w), name
@@ -193,10 +298,10 @@ def test_cuda_span_kernel_matches_plain(window):
         args = anchor_rows(np.random.default_rng(seed), 37, 300, colinear=colinear)
         args.append(args[3].sum(dim=1).to(torch.int32))
         args = with_spans(args, np.random.default_rng(seed + 1))
-        before = (chain_dp_skip.span_launches, chain_dp_skip.launches, chain_dp_skip.ext_launches)
+        before = (LAUNCHES.span_launches, LAUNCHES.launches, LAUNCHES.ext_launches)
         got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), window=window, spans=True, **KW)
         torch.cuda.synchronize()
-        after = (chain_dp_skip.span_launches, chain_dp_skip.launches, chain_dp_skip.ext_launches)
+        after = (LAUNCHES.span_launches, LAUNCHES.launches, LAUNCHES.ext_launches)
         assert after == (before[0] + 1, *before[1:])
         want = chain_dp_skip(*args, AVA_ONT.chn_pen_gap(), window=window, spans=True, **KW)
         for name, g, w in zip(("f", "broke", "cnt"), got, want):
@@ -277,18 +382,18 @@ def test_engine_on_card_matches_host():
     qnames = [b"q%d" % i for i in range(40)]
     index = build_index(targets, tnames, preset_for(Platform.NANOPORE, dual=True))
     dev = DeviceOverlapEngine(index, device=torch.device("cuda"), batch_size=16, length_buckets=(4096,))
-    before = chain_dp_skip.launches
+    before = LAUNCHES.launches
     res = dev.count_batch(qnames, queries)
-    assert chain_dp_skip.launches > before
+    assert LAUNCHES.launches > before
     host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
     np.testing.assert_array_equal(res.counts, [c for c, _ in host])
     np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
     # the PacBio/HPC preset on the same reads: the span variant
     index = build_index(targets, tnames, preset_for(Platform.PACBIO, dual=True))
     dev = DeviceOverlapEngine(index, device=torch.device("cuda"), batch_size=16, length_buckets=(4096,))
-    before = chain_dp_skip.span_launches
+    before = LAUNCHES.span_launches
     res = dev.count_batch(qnames, queries)
-    assert chain_dp_skip.span_launches > before
+    assert LAUNCHES.span_launches > before
     host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
     np.testing.assert_array_equal(res.counts, [c for c, _ in host])
     np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
@@ -324,10 +429,10 @@ def test_multisub_engine_on_card_matches_host():
         # the pass's program is captured here, so the pass's launches are
         # its replay's alone
         dev.warmup([len(q) for q in queries])
-        before = getattr(chain_dp_skip, counter)
+        before = getattr(LAUNCHES, counter)
         res = dev.count_batch(qnames, queries)
         # 40 rows: 3 batches of 16, one super-batch
-        assert getattr(chain_dp_skip, counter) == before + dev.gdev.n_sub
+        assert getattr(LAUNCHES, counter) == before + dev.gdev.n_sub
         host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
         np.testing.assert_array_equal(res.counts, [c for c, _ in host])
         np.testing.assert_array_equal(res.had_mapping, [bool(h) for _, h in host])
@@ -365,10 +470,10 @@ def test_sharded_engine_on_card_matches_single_device():
         assert len(dev.shards) == 2 and all(gi.uhash.device.type == "cuda" for gi in dev.shards)
         # capture the pass's programs first: the pass then launches by replay alone
         dev.warmup([len(q) for q in queries])
-        before = getattr(chain_dp_skip, counter)
+        before = getattr(LAUNCHES, counter)
         res = dev.count_batch(qnames, queries)
         # 40 rows: 3 batches of 16, one super-batch, one launch a shard
-        assert getattr(chain_dp_skip, counter) == before + 2
+        assert getattr(LAUNCHES, counter) == before + 2
         np.testing.assert_array_equal(res.counts, one.counts)
         np.testing.assert_array_equal(res.had_mapping, one.had_mapping)
         host = OverlapEngine(index).count_overlaps_many(list(zip(qnames, queries)))
@@ -383,7 +488,7 @@ def test_programs_on_card_match_eager():
     # function on the same inputs; a replay adds its graph's launches to
     # the counters; a warm pass enqueues without syncing the host
     need_cuda()
-    from lrge_tpu_torch.ops.chain_kernel import launch_counts
+    from lrge_tpu_torch.ops.cuda_lib import launch_counts
 
     rng = np.random.default_rng(2024)
     genome = rng.choice(list(b"ACGT"), size=100_000).astype(np.uint8).tobytes()
@@ -420,11 +525,12 @@ def test_programs_on_card_match_eager():
         runs = []
         for _, A, codes, lengths, ids, d, s in batches[:2]:
             prog = dev.program(2048, A, ids.shape[0], **mode)
-            arrays = dev.program_arrays(2048, codes, lengths, ids, d, s, queries)
+            arrays = dev.program_arrays(codes, lengths, d, s)
             before = launch_counts()
             runs.append((prog, arrays, prog.run(*arrays)))
             after = launch_counts()
-            assert prog.graph is not None and sum(prog.launches.values()) == dev.gdev.n_sub
+            assert prog.graph is not None and prog.launches["sketch_launches"] == dev.pb_mode
+            assert sum(prog.launches.values()) - dev.pb_mode == dev.gdev.n_sub
             assert {c: after[c] - before[c] for c in after} == prog.launches
         for prog, arrays, got in runs:
             want = prog.fn(*(torch.from_numpy(a).to(card) for a in arrays))
@@ -470,7 +576,7 @@ def test_shard_programs_on_card_match_eager():
     # adds one launch a shard; a warm pass's stage 1 enqueues without
     # syncing the host
     need_cuda()
-    from lrge_tpu_torch.ops.chain_kernel import launch_counts
+    from lrge_tpu_torch.ops.cuda_lib import launch_counts
     from lrge_tpu_torch.parallel import sharded_count
 
     targets, tnames, queries, qnames = sharded_reads()
@@ -487,7 +593,7 @@ def test_shard_programs_on_card_match_eager():
             query, shards = dev.shard_programs(2048, A, *ids.shape, want_pairs=True)
             assert query.graph is not None and all(p.graph is not None for p in shards)
             assert [p.key.shard for p in shards] == [0, 1] and all(p.launches[counter] == 1 for p in shards)
-            arrays = dev.program_arrays(2048, codes, lengths, ids, d, s, queries)
+            arrays = dev.program_arrays(codes, lengths, d, s)
             before = launch_counts()
             runs.append((A, arrays, dev.sharded_run(2048, A, arrays, want_pairs=True)))
             assert launch_counts()[counter] == before[counter] + 2

@@ -6,7 +6,9 @@ reference's ``build_index(..., preset_for(Platform.PACBIO, dual=...))``:
 
 * the wide ``GroupedDeviceIndex`` planes, field by field, packed and
   unpacked, and ``None`` where the bucketed dictionary cannot be built;
-* the engine's host-sketched planes (``_pb_planes``);
+* the query sketch's planes (``sketch_hpc``, the plain version on the
+  CPU, which the programs run) against the reference engine's host
+  planes (``_pb_planes``), on the homopolymer and mixed corpora;
 * ``_q_occ_drop_wide`` on rows where the filter is active;
 * ``_pb_probe`` in both bucket-index branches, and ``pb_lookup_many``;
 * the span chain DP (``chain_dp_skip_plain(spans=True)``) against the
@@ -23,7 +25,12 @@ reference's ``build_index(..., preset_for(Platform.PACBIO, dual=...))``:
 Integer outputs throughout: tolerance 0.
 """
 
+import fcntl
+import importlib
 import logging
+import os
+import tempfile
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -36,8 +43,10 @@ import jax
 import jax.numpy as jnp
 from test_device_engine import make_reads
 from test_torch_index import assert_planes_equal, jax_planes
+from test_torch_kernel import hpc_planes
 from test_torch_overlap import plane_inputs
 
+import lrge_tpu.native as ref_native_module
 from lrge_tpu.device_engine import DeviceOverlapEngine as RefEngine
 from lrge_tpu.engine import OverlapEngine
 from lrge_tpu.ops import overlap_jax as ref
@@ -80,6 +89,24 @@ CORPORA = {"mixed": mixed_corpus, "homopolymer": homopolymer_corpus}
 
 
 @pytest.fixture(scope="module")
+def ref_native():
+    """The reference's native extension, which its PacBio planes and
+    device engine need.  The reference builds it at its first import,
+    with an unlocked g++ into its package directory, so parallel test
+    workers in a fresh checkout race that build, and a worker that
+    imported a half-written library runs without it.  Such a worker
+    loads it again here, one worker at a time, until the build is whole."""
+    if ref_native_module.native is None and os.environ.get("LRGE_NO_NATIVE") != "1":
+        with open(os.path.join(tempfile.gettempdir(), "lrge_tpu_native_build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            deadline = time.monotonic() + 240  # the reference's own build timeout
+            while importlib.reload(ref_native_module).native is None and time.monotonic() < deadline:
+                time.sleep(2)
+    assert ref_native_module.native is not None, "the reference's native extension did not load"
+    return ref_native_module.native
+
+
+@pytest.fixture(scope="module")
 def corpora():
     out = {}
     for name, make in CORPORA.items():
@@ -109,8 +136,9 @@ def both_indexes(index, monkeypatch, bucket_bits, no_pack=False):
 
 
 def host_planes(params, seqs, M):
-    """``(qhi, qlo, mps, mcount)`` of the port's engine for ``seqs``."""
-    return DeviceOverlapEngine._pb_planes(SimpleNamespace(params=params), seqs, M)
+    """``(qhi, qlo, mps, mcount)`` of the port's query sketch for ``seqs``
+    (``sketch_hpc`` on the CPU: its plain version)."""
+    return hpc_planes(seqs, params, M)
 
 
 @pytest.mark.parametrize("no_pack", [False, True])
@@ -132,16 +160,17 @@ def test_wide_index_without_a_dictionary_is_none(corpora, monkeypatch, caplog):
     assert "wide-key bucketed dictionary" in caplog.text
 
 
-def test_pb_planes_match_reference(corpora):
-    c = corpora["homopolymer"]
-    seqs = c.queries + [b"", c.queries[0][:30]]
-    for M in (128, 768):  # rows above M keep only their first M minimizers
-        want = RefEngine._pb_planes(SimpleNamespace(params=PB), seqs, M)
-        got = host_planes(PB, seqs, M)
-        for g, w, what in zip(got, want, ("qhi", "qlo", "mps", "mcount")):
-            assert g.dtype == np.int32, what
-            np.testing.assert_array_equal(g, w, err_msg=what)
-    assert (got[3] > 128).any() and len(np.unique((got[2] >> 1) & 255)) > 3
+def test_pb_planes_match_reference(corpora, ref_native):
+    for name in ("homopolymer", "mixed"):
+        c = corpora[name]
+        seqs = c.queries + [b"", c.queries[0][:30]]
+        for M in (128, 768):  # rows above M keep only their first M minimizers
+            want = RefEngine._pb_planes(SimpleNamespace(params=PB), seqs, M)
+            got = host_planes(PB, seqs, M)
+            for g, w, what in zip(got, want, ("qhi", "qlo", "mps", "mcount")):
+                assert g.dtype == np.int32, what
+                np.testing.assert_array_equal(g, w, err_msg=f"{name} {what}")
+        assert (got[3] > 128).any() and len(np.unique((got[2] >> 1) & 255)) > 3
 
 
 def q_occ_rows(rng):
@@ -387,7 +416,7 @@ def test_reduce_min_cnt_gate_matches_jax():
 
 
 @pytest.mark.parametrize("corpus,ava", [("mixed", False), ("homopolymer", False), ("mixed", True)])
-def test_count_batch_matches_reference_and_host(corpora, monkeypatch, corpus, ava):
+def test_count_batch_matches_reference_and_host(corpora, ref_native, monkeypatch, corpus, ava):
     c = corpora[corpus]
     monkeypatch.setenv("LRGE_SHARDS", "1")  # the reference's single-device path
     monkeypatch.setenv("LRGE_DEVICE_MIN_ROWS", "0")  # every bucket on the device

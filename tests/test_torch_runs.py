@@ -166,6 +166,7 @@ def test_cuda_kernel_on_these_runs_matches_plain(corpus, window):
     # against the plain row walk on the corpora above (the span variant
     # on the span corpus)
     from lrge_tpu_torch.ops.chain_kernel import chain_dp_skip
+    from lrge_tpu_torch.ops.cuda_lib import LAUNCHES
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -176,10 +177,10 @@ def test_cuda_kernel_on_these_runs_matches_plain(corpus, window):
     modes = [variant(corpus)[0]] if corpus == "spans" else [{}, dict(extents=True)]
     for mode in modes:
         kw = dict(KW, window=window, **mode)
-        before = chain_dp_skip.span_launches
+        before = LAUNCHES.span_launches
         got = chain_dp_skip(*[a.cuda() for a in args], AVA_ONT.chn_pen_gap(), **kw)
         torch.cuda.synchronize()
-        assert chain_dp_skip.span_launches == before + bool(mode.get("spans"))
+        assert LAUNCHES.span_launches == before + bool(mode.get("spans"))
         want = chain_dp_skip_plain(*args, AVA_ONT.chn_pen_gap(), **kw)
         assert len(got) == len(want)
         for name, g, w in zip(OUTS, got, want):

@@ -1,8 +1,8 @@
 """The sharded super-batch programs of the PyTorch port (``ops/program.py``) on the CPU.
 
 On a sharded index the engine runs each super-batch as one ``"query"``
-program on the home device (the ONT sketch, or the PacBio host planes,
-then ``query_keep``) and one ``"shard"`` program a shard on its own
+program on the home device (the ONT or the PacBio/HPC sketch of the
+codes, then ``query_keep``) and one ``"shard"`` program a shard on its own
 device (``shard_count``), the merge outside them
 (``parallel/sharded.py::sharded_count_programs``); on the card each is a
 CUDA graph, here an eager call with the same static inputs and outputs.
@@ -79,9 +79,11 @@ def host_planes(corpus, params, wide):  # noqa: F811
     """The reference's query planes of the corpus's queries at ``M``
     minimizer slots (numpy): ``(q0, q1, mps, mcount, codes, lengths)``;
     narrow ``q0`` is the ``mhash`` of ``sketch_batch_exact`` and ``q1`` a
-    dummy, wide the native sketch's ``qhi``/``qlo`` (``codes`` None)."""
+    dummy, wide the native sketch's ``qhi``/``qlo``; ``codes`` are the
+    query program's input under both."""
     _, _, queries, _ = corpus
     B = len(queries)
+    (batch,) = make_batches(queries, batch_size=B, pad_to=L, length_sorted=False)
     if wide:
         from lrge_tpu.ops.sketch import sketch_seqs_native
 
@@ -96,8 +98,7 @@ def host_planes(corpus, params, wide):  # noqa: F811
             qlo[i, :c] = (h38 & np.uint64((1 << 19) - 1)).astype(np.int32)[:c]
             span = (mz.key & np.uint64(0xFF)).astype(np.int32)
             mps[i, :c] = (mz.pos.astype(np.int32)[:c] << 9) | (span[:c] << 1) | mz.strand.astype(np.int32)[:c]
-        return qhi, qlo, mps, mcount, None, np.array([len(q) for q in queries], np.int32)
-    (batch,) = make_batches(queries, batch_size=B, pad_to=L, length_sorted=False)
+        return qhi, qlo, mps, mcount, batch.codes, batch.lengths
     mhash, mpos, mstrand, mcount = (np.asarray(x) for x in sketch_batch_exact(
         batch.codes, batch.lengths, k=params.k, w=params.w, max_minimizers=M))
     return (mhash, np.zeros((B, 1), np.int32), (mpos * 2 + mstrand).astype(np.int32), mcount, batch.codes,
@@ -136,7 +137,7 @@ def test_sharded_program_functions_are_capture_safe(corpus, monkeypatch, layout,
     B = len(lengths)
     query, shard_progs, _ = programs(index, 2, B)
     rows = [lengths[None], np.zeros((1, B), np.int32), np.full((1, B), -1, np.int32)]
-    arrays = [codes[None], *rows] if codes is not None else [q0[None], q1[None], mps[None], mcount[None], *rows]
+    arrays = [codes[None], *rows]
     prog = query if branch == "query" else shard_progs[1]
     if branch == "query":
         for dst, a in zip(query.inputs, arrays):
@@ -177,12 +178,13 @@ def test_sharded_programs_match_reference(corpus, mesh):  # noqa: F811
     )]
     query, shard_progs, shards = programs(index, S, B)
     rows = [qlen[None], qdual[None], qself[None]]
-    arrays = [codes[None], *rows] if codes is not None else [q0[None], q1[None], mps[None], mcount[None], *rows]
-    *planes, got_mcount = query.run(*arrays)
+    *planes, got_mcount = query.run(codes[None], *rows)
     # the query program's planes are the reference's sketch (the narrow
     # hash as int32, its 0xFFFFFFFF padding wrapped to -1)
     np.testing.assert_array_equal(planes[0].numpy(), q0.astype(np.uint32).view(np.int32))
     assert (planes[1] is None) == (not sgi.wide)
+    if sgi.wide:
+        np.testing.assert_array_equal(planes[1].numpy(), q1)
     np.testing.assert_array_equal(planes[2].numpy(), mps)
     np.testing.assert_array_equal(got_mcount.numpy(), mcount)
     np.testing.assert_array_equal(planes[4].numpy(), qlen)

@@ -3,8 +3,16 @@
 ``hash32``, ``sketch_core`` and the 2-bit unpack must equal
 ``lrge_tpu.ops.sketch_jax`` / ``ops.overlap_jax`` bit for bit on the
 ``tests/test_sketch.py`` corpora: clean reads, N-bearing reads, reads
-shorter than ``w + k``, homopolymers and repeat prefixes.
+shorter than ``w + k``, homopolymers and repeat prefixes.  The
+PacBio/HPC sketch (``sketch_hpc``, its plain version on the CPU) must
+equal, plane for plane, both the reference engine's host planes
+(``lrge_tpu.device_engine.DeviceOverlapEngine._pb_planes``) and the
+port's native sketcher with the planes filled here, on the edge reads of
+``tests/test_torch_kernel.py`` under each of its parameter sets and at
+two capacities; ``ops/encode.py``'s code table must be the native one.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,13 +22,20 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 import jax.numpy as jnp
 from test_sketch import random_read
+from test_torch_kernel import hpc_planes
+from test_torch_pacbio import ref_native  # noqa: F401 (fixture)
 
+from lrge_tpu.device_engine import DeviceOverlapEngine as RefEngine
 from lrge_tpu.ops.encode import make_batches
 from lrge_tpu.ops.overlap_jax import _unpack2bit as ref_unpack2bit
 from lrge_tpu.ops.overlap_jax import pack2bit_host as ref_pack2bit
 from lrge_tpu.ops.sketch_jax import hash32 as ref_hash32
 from lrge_tpu.ops.sketch_jax import sketch_batch as ref_sketch_batch
-from lrge_tpu_torch.ops.overlap import _unpack2bit, pack2bit_host
+from lrge_tpu_torch.native import native
+from lrge_tpu_torch.ops.encode import NT4
+from lrge_tpu_torch.ops.overlap import _unpack2bit, minimizer_cap, pack2bit_host
+from lrge_tpu_torch.ops.sketch_cases import HPC_PARAMS, hpc_edge_reads
+from lrge_tpu_torch.ops.sketch import sketch_seqs_native
 from lrge_tpu_torch.ops.sketch_torch import hash32, sketch_core
 
 
@@ -76,3 +91,48 @@ def test_unpack2bit_matches_jax():
         got = _unpack2bit(torch.from_numpy(packed), L).numpy()
         np.testing.assert_array_equal(got, ref)
         np.testing.assert_array_equal(got, (codes & 3)[..., :L])
+
+
+def native_planes(seqs, params, M):
+    """The port's native sketch of ``seqs`` filled into the device planes
+    (the 38-bit hash split at bit 19, ``pos << 9 | span << 1 | strand``,
+    the true counts), row by row."""
+    n = len(seqs)
+    qhi = np.full((n, M), -1, np.int32)
+    qlo, mps = np.zeros((n, M), np.int32), np.zeros((n, M), np.int32)
+    mcount = np.zeros(n, np.int32)
+    for i, mz in enumerate(sketch_seqs_native(seqs, params.k, params.w, params.hpc)):
+        h = mz.key >> np.uint64(8)
+        c = min(len(h), M)
+        mcount[i] = len(h)
+        qhi[i, :c] = (h >> np.uint64(19)).astype(np.int32)[:c]
+        qlo[i, :c] = (h & np.uint64((1 << 19) - 1)).astype(np.int32)[:c]
+        span = (mz.key & np.uint64(255)).astype(np.int32)[:c]
+        mps[i, :c] = (mz.pos[:c].astype(np.int32) << 9) | (span << 1) | mz.strand[:c].astype(np.int32)
+    return qhi, qlo, mps, mcount
+
+
+@pytest.mark.parametrize("case", list(HPC_PARAMS))
+def test_hpc_sketch_matches_native_and_reference(case, ref_native):
+    k, w, hpc = HPC_PARAMS[case]
+    params = SimpleNamespace(k=k, w=w, hpc=hpc)
+    seqs = hpc_edge_reads(np.random.default_rng(7))
+    for M in (64, minimizer_cap(2048)):
+        got = hpc_planes(seqs, params, M)
+        host = native_planes(seqs, params, M)
+        ref = RefEngine._pb_planes(SimpleNamespace(params=params), seqs, M)
+        for g, h, r, what in zip(got, host, ref, ("qhi", "qlo", "mps", "mcount")):
+            assert g.dtype == np.int32, what
+            np.testing.assert_array_equal(g, h, err_msg=f"{what}: the port's native sketch")
+            np.testing.assert_array_equal(g, r, err_msg=f"{what}: the reference's planes")
+    # rows above the small capacity keep their true counts; a 5-base, an
+    # empty and an all-N row have none
+    assert (got[3] > 64).any() and (got[3][[7, 12, 13]] == 0).all()
+    if hpc:
+        assert len(np.unique((got[2][got[0] >= 0] >> 1) & 255)) > 3, "HPC spans vary"
+
+
+def test_nt4_matches_native():
+    assert native is not None, "the port's native extension did not build"
+    every = bytes(range(256))
+    np.testing.assert_array_equal(NT4, np.frombuffer(native.encode_seq(every), np.uint8))

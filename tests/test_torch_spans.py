@@ -35,7 +35,7 @@ CPU = torch.device("cpu")
 MODES = {
     # reads of 2-3 kb pass the last bucket: the host thread counts them
     "ont_one_sub": ({"LRGE_DEVICE_BUCKET": "2048"}, Platform.NANOPORE, CPU, "enqueue.pack"),
-    "pacbio": ({}, Platform.PACBIO, CPU, "enqueue.pb_fill"),
+    "pacbio": ({}, Platform.PACBIO, CPU, "enqueue.submit"),
     "sharded": ({"LRGE_SHARDS": "2"}, Platform.NANOPORE, [CPU] * 2, "enqueue.submit"),
 }
 
@@ -114,7 +114,11 @@ def test_pass_record_nests_and_its_views_are_its_spans(corpus, monkeypatch, mode
         assert sum(k.duration for k in kids) <= sb.duration
         assert rec.self_time(sb) == sb.duration - sum(k.duration for k in kids)
     if mode == "pacbio":
-        assert len(by_name(rec, "enqueue.pb_sketch")) == len(sbs)
+        # the programs sketch every live row on the device: no host sketch
+        assert rec.counters["pb_card_rows"] == rec.counters["row_slots"] - rec.counters["pad_rows"] > 0
+        assert not by_name(rec, "enqueue.pb_sketch") and not by_name(rec, "enqueue.pb_fill")
+    else:
+        assert "pb_card_rows" not in rec.counters
     if mode == "sharded":
         # the query program and each shard's, a super-batch
         assert len(by_name(rec, "enqueue.submit")) == 3 * len(sbs)
@@ -207,7 +211,7 @@ def test_off_path_never_enters_record_function(corpus, monkeypatch):  # noqa: F8
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     res = dev.count_batch(qnames, queries)
     assert res.counts.shape == (len(queries),) and np.all(res.counts >= 0)
-    assert by_name(spans.passes[-1], "enqueue.pb_sketch")
+    assert spans.passes[-1].counters["pb_card_rows"] > 0
 
 
 def test_carry_hands_the_record_and_parent_to_a_thread():

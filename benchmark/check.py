@@ -16,12 +16,14 @@ Three numbers, each exact (limit 0):
 
 The reference runs after the window, once the program's state is freed,
 in worker processes (``benchmark/workers.py``, NumPy only): the
-targets' and queries' sketches, then the sampled rows' chaining.
+targets' and queries' sketches, then the sampled rows' chaining (the
+rows' anchors are collected in threads here, against the index).
 """
 
 from __future__ import annotations
 
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -57,17 +59,25 @@ class Reference:
     def sketch_queries(self, rows) -> None:
         """Sketch the queries of ``rows`` not sketched yet."""
         todo = [int(r) for r in rows if int(r) not in self.query_sketches]
-        self.query_sketches.update(zip(todo, self._sketch([self.corpus.queries[r] for r in todo])))
+        if todo:
+            self.query_sketches.update(zip(todo, self._sketch([self.corpus.queries[r] for r in todo])))
 
     def anchors(self, row: int) -> chain.Anchors:
         self.sketch_queries([row])
         q = self.corpus.queries[row]
         return chain.collect_anchors(self.index, self.query_sketches[int(row)], len(q), self.p)
 
+    def map_anchors(self, fn, rows) -> list:
+        """``fn`` of the anchors of each of ``rows``, in threads: NumPy
+        lets go of the interpreter lock in the lookups, gathers and
+        sorts."""
+        self.sketch_queries(rows)
+        with ThreadPoolExecutor(self.pool.n_workers) as threads:
+            return list(threads.map(lambda r: fn(self.anchors(r)), rows))
+
     def counts(self, rows) -> np.ndarray:
         """The reference counts of ``rows``."""
-        self.sketch_queries(rows)
-        anchors = [self.anchors(r) for r in rows]
+        anchors = self.map_anchors(lambda a: a, rows)
         jobs = [(c, self.p) for c in _chunks(anchors, self.pool.n_workers * 4)]
         return np.array([c for part in self.pool.map("count", jobs) for c in part], dtype=np.int64)
 

@@ -59,20 +59,23 @@ def device_plan(engine, queries) -> dict:
     return {i: engine.bucket_shape(L)[0] for L, rows in bucket_rows.items() for i in rows}
 
 
+def _runs(a) -> np.ndarray:
+    """The lengths of the runs of anchors ``a`` (one run of 0 where there are none)."""
+    key2 = a.rid.astype(np.int64) * 2 + a.strand
+    starts = np.flatnonzero(np.concatenate(([True], key2[1:] != key2[:-1])))
+    return np.diff(np.concatenate((starts, [len(a)])))
+
+
 def pass_work(ref, plan: dict, W: int) -> dict:
     """One pass's counted chain DP work over the reference's anchors of
     the rows of ``plan`` (``device_plan``) whose anchors fit."""
     evals = anchors = runs = rows = 0
-    ref.sketch_queries(list(plan))
-    for row, A in plan.items():
-        a = ref.anchors(row)
-        if len(a) == 0 or len(a) > A:
+    for (row, A), lens in zip(plan.items(), ref.map_anchors(_runs, list(plan))):
+        n = int(lens.sum())
+        if n == 0 or n > A:
             continue
-        key2 = a.rid.astype(np.int64) * 2 + a.strand
-        starts = np.flatnonzero(np.concatenate(([True], key2[1:] != key2[:-1])))
-        lens = np.diff(np.concatenate((starts, [len(a)])))
         evals += int(run_evals(lens, W).sum())
-        anchors += len(a)
+        anchors += n
         runs += len(lens)
         rows += 1
     return {"evals": evals, "anchors": anchors, "runs": runs, "rows": rows}

@@ -218,26 +218,34 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device, *, fault=N
     peak = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     programs = len(engine.programs)
+    t0 = time.perf_counter()
     rec.device_plan = roofline.device_plan(engine, corpus.queries)
+    t_plan = time.perf_counter() - t0
     del engine, index
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     if prof is not None:
         rec.trace = trace.reduce(prof)
         del prof
+    t_reduce = time.perf_counter() - t0
 
     last = rec.passes[-1]
     t0 = time.perf_counter()
     rec.reference = check.Reference(corpus, Params.from_config(cfg), Workers(workers))
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
     numbers = check.judge(rec.reference, seed, [p.counts for p in rec.passes], last.estimate)
-    t_check = time.perf_counter() - t0
+    t_counts = time.perf_counter() - t0
 
     metrics = {}
+    t0 = time.perf_counter()
     for m in cell.per_layer if trace_on else cell.end_to_end:
         value = spec.reader(m["name"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    t_readers = time.perf_counter() - t0
     device_rec = {"platform": "gpu" if device.type == "cuda" else device.type, "kind": kind, "count": 1,
                   "memory_peak_bytes": peak}
     phases = {k: float(np.mean([p.phases.get(k, 0.0) for p in rec.passes])) for k in last.phases}
@@ -276,7 +284,10 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device, *, fault=N
     }
     if rec.trace is not None:
         result["breakdown"] = trace.breakdown(rec.trace)
-    rec.notes.append(f"checked {numbers['rows_checked']} sampled rows against the reference in {t_check:.3f} s")
+    rec.notes.append(f"checked {numbers['rows_checked']} sampled rows against the reference: its index "
+                     f"{t_index:.3f} s, its counts {t_counts:.3f} s")
+    rec.notes.append(f"after the window: device plan {t_plan:.3f} s, trace reduced {t_reduce:.3f} s, reference "
+                     f"{t_index + t_counts:.3f} s, readers {t_readers:.3f} s; process age {process_age():.3f} s")
     result["checks"] = checks
     return result, rec.notes
 

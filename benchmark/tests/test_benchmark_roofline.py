@@ -21,11 +21,8 @@ class FakeRef:
         self.corpus = type("C", (), {"queries": [b"A" * n for n in lengths]})()
         self._anchors = anchors
 
-    def sketch_queries(self, rows):
-        pass
-
-    def anchors(self, row):
-        return self._anchors[row]
+    def map_anchors(self, fn, rows):
+        return [fn(self._anchors[r]) for r in rows]
 
 
 def row(runs):

@@ -30,7 +30,7 @@ def _sketch(seqs, k, w, hpc):
 def _count(anchors, p):
     from .reference import chain
 
-    return [chain.count(a, p) for a in anchors]
+    return chain.counts(anchors, p)
 
 
 JOBS = {"sketch": _sketch, "count": _count}
